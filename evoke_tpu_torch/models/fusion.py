@@ -1,0 +1,135 @@
+"""Multiview fusion (port of evoke_tpu/models/fusion.py).
+
+Anchor i's tokens attend the gradient-stopped tokens of its same-study partner
+views in the whole batch (anchors first, then auxiliary views), then residual
++ LayerNorm; anchors with no partner pass through after the first LayerNorm.
+The LayerNorms are torch ``nn.LayerNorm`` semantics (biased variance, eps
+1e-5). ``wide_qkv`` keeps the reference's per-head dim == d_model.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention
+
+
+def same_study_matrix(q_pids, k_pids, q_valid, k_valid):
+    """[Q], [K] codes + validity -> [Q, K] bool: same study, both valid, not self."""
+    q, k = q_pids.shape[0], k_pids.shape[0]
+    eq = q_pids[:, None] == k_pids[None, :]
+    v = q_valid[:, None].bool() & k_valid[None, :].bool()
+    self_slot = (torch.arange(q, device=q_pids.device)[:, None]
+                 == torch.arange(k, device=q_pids.device)[None, :])
+    return eq & v & ~self_slot
+
+
+def max_partners_in(pids, valid, n_anchor: int) -> int:
+    """Host-side: the largest number of same-study partner rows any anchor has
+    (serving checks a configured ``max_partners`` bound against it)."""
+    pids = np.asarray(pids)
+    valid = np.asarray(valid)
+    best = 0
+    for i in range(n_anchor):
+        if not valid[i]:
+            continue
+        same = (pids == pids[i]) & valid
+        same[i] = False
+        best = max(best, int(same.sum()))
+    return best
+
+
+class BatchedCrossViewAttention(nn.Module):
+    """Anchor tokens attend their same-study partners' tokens.
+
+    ``max_partners=None``: dense masked attention over all B*T batch tokens;
+    ``max_partners=G``: the partner rows are gathered per anchor (lowest row
+    first, plus a self-row slot for partnerless anchors) and attention runs
+    over (1+G)*T keys — identical whenever every anchor has <= G partners.
+    ``use_pallas=True`` (the fused fusion-attention kernel K3) is not ported
+    yet (ROADMAP B3) and raises."""
+
+    def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
+                 use_pallas: bool = False, max_partners: Any = None, dtype=torch.float32):
+        super().__init__()
+        if use_pallas:
+            raise NotImplementedError(
+                "BatchedCrossViewAttention(use_pallas=True): the fusion-attention "
+                "kernel (K3, evoke_tpu/ops/fusion_attention.py) is not ported yet "
+                "(ROADMAP B3)")
+        self.num_heads = num_heads
+        self.dk = d_model if wide_qkv else d_model // num_heads
+        self.max_partners = max_partners
+        hd = num_heads * self.dk
+        self.fc_q = Dense(d_model, hd, dtype)
+        self.fc_k = Dense(d_model, hd, dtype)
+        self.fc_v = Dense(d_model, hd, dtype)
+        self.fc_o = Dense(hd, d_model, dtype)
+
+    def forward(self, x_q, x_kv, study_mask):
+        """x_q [Q, T, D] anchors; x_kv [B, T, D] whole batch; study_mask [Q, B]."""
+        qn, t, _ = x_q.shape
+        b = x_kv.shape[0]
+        h, dk = self.num_heads, self.dk
+        dev = x_q.device
+        kv = x_kv.detach()  # the reference detaches k/v
+        q = self.fc_q(x_q).reshape(qn, t, h, dk).transpose(1, 2)      # [Q, h, T, dk]
+        k = self.fc_k(kv)
+        v = self.fc_v(kv)
+        has_partner = study_mask.any(-1)
+
+        if self.max_partners is not None:
+            g = min(int(self.max_partners), b)
+            cols = torch.arange(b, device=dev)[None, :]
+            order = torch.sort(torch.where(study_mask, cols, b + cols), dim=1).values[:, :g]
+            pidx = order % b
+            pvalid = order < b
+            slot_idx = torch.cat([torch.arange(qn, device=dev)[:, None], pidx], dim=1)
+            slot_valid = torch.cat([~has_partner[:, None], pvalid], dim=1)
+            kg = k.reshape(b, t, h, dk)[slot_idx]                          # [Q, 1+G, T, h, dk]
+            vg = v.reshape(b, t, h, dk)[slot_idx]
+            kg = kg.reshape(qn, (1 + g) * t, h, dk).transpose(1, 2)
+            vg = vg.reshape(qn, (1 + g) * t, h, dk).transpose(1, 2)
+            mask4 = slot_valid.repeat_interleave(t, dim=1)[:, None, None, :]
+            out, _ = dot_attention(q, kg, vg, mask=mask4)
+            return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
+
+        k = k.reshape(b * t, h, dk).transpose(0, 1)                       # [h, B*T, dk]
+        v = v.reshape(b * t, h, dk).transpose(0, 1)
+        self_mask = ((torch.arange(qn, device=dev)[:, None]
+                      == torch.arange(b, device=dev)[None, :]) & ~has_partner[:, None])
+        attend = study_mask | self_mask
+        mask4 = attend.repeat_interleave(t, dim=1)[:, None, None, :]
+        out, _ = dot_attention(q, k[None], v[None], mask=mask4)
+        return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
+
+
+class MultiviewFusion(nn.Module):
+    """LN1 -> masked cross-view attention -> residual + LN2 (pass-through when no partner)."""
+
+    def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
+                 max_partners: Any = None, dtype=torch.float32):
+        super().__init__()
+        self.layer_norm_1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.layer_norm_2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.cross = BatchedCrossViewAttention(d_model, num_heads, wide_qkv,
+                                               max_partners=max_partners, dtype=dtype)
+
+    def forward(self, image_embed, pid_codes, valid, n_anchor: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """image_embed [B, T, D] (anchors first); pid_codes/valid [B] ->
+        (fused [n_anchor, T, D], has_partner [n_anchor])."""
+        study_mask = same_study_matrix(pid_codes[:n_anchor], pid_codes,
+                                       valid[:n_anchor], valid)
+        has_partner = study_mask.any(-1)
+        x = self.layer_norm_1(image_embed)
+        x_q = x[:n_anchor]
+        fused = self.layer_norm_2(self.cross(x_q, x, study_mask) + x_q)
+        return torch.where(has_partner[:, None, None], fused, x_q), has_partner
+
+    def norm_only(self, image_embed):
+        return self.layer_norm_1(image_embed)

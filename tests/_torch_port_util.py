@@ -1,0 +1,82 @@
+"""Shared set-up for the port's parity tests (tests/test_torch_port_*.py).
+
+The same numpy-seeded inputs and the same JAX-initialised weights (carried
+over by ``evoke_tpu_torch.params``) go through the JAX package and the port,
+both on the CPU; JAX runs at float32 ``highest`` matmul precision
+(tests/conftest.py)."""
+
+import functools
+
+import numpy as np
+import jax
+import torch
+
+TINY = dict(output_dim=64, encoder_hidden_size=32, encoder_num_layers=1,
+            encoder_num_heads=2, encoder_intermediate_size=64, d_model=32, d_ff=64,
+            num_heads=2, num_layers=2, rm_num_slots=3, rm_d_model=32,
+            fusion_num_heads=2, fusion_intermediate_size=64, sk_fusion_num_layers=1,
+            max_seq_len=16, fusion_wide_qkv=False)
+
+
+def to_np(tree):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+def example_batch(rng, n_anchor, n_aux, image_size, seq_len, vocab_size):
+    """The __graft_entry__._example_batch layout: anchors first, aux views of
+    anchor (i % n_anchor), indication ids/mask."""
+    total = n_anchor + n_aux
+    pids = np.concatenate([np.arange(n_anchor), np.arange(n_aux) % n_anchor]).astype(np.int32)
+    return {
+        "images": rng.normal(size=(total, image_size, image_size, 3)).astype(np.float32),
+        "ids": rng.integers(5, vocab_size - 3, size=(n_anchor, seq_len)).astype(np.int32),
+        "mask": np.ones((n_anchor, seq_len), np.int32),
+        "pids": pids,
+        "valid": np.ones(total, bool),
+        "inc_ids": rng.integers(5, vocab_size - 3, size=(n_anchor, seq_len)).astype(np.int32),
+        "inc_mask": np.ones((n_anchor, seq_len), np.int32),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_pair(vocab=50, seed=0, n_anchor=2, n_aux=2, image_size=32, sharpen=True):
+    """(jax model, jax variables (numpy), port model loaded with them, batch),
+    built once per process (JAX init of the tiny flagship takes ~30 s on the
+    CPU); callers must not mutate what it returns.
+
+    ``sharpen`` rescales the decoder's logit head so random weights produce
+    varied tokens (and EOS) instead of one repeated word."""
+    from evoke_tpu.models.finetune import FinetuneModel as JModel
+
+    from evoke_tpu_torch.models.finetune import FinetuneModel as TModel
+    from evoke_tpu_torch.params import load_flax_variables
+
+    rng = np.random.default_rng(seed)
+    batch = example_batch(rng, n_anchor, n_aux, image_size, 16, vocab)
+    jm = JModel(vocab_size=vocab, drop_prob_lm=0.5, **TINY)
+    v = jax.jit(lambda k: jm.init(k, batch["images"], batch["ids"], batch["mask"],
+                                  batch["pids"], batch["valid"], batch["inc_ids"],
+                                  batch["inc_mask"], method=jm.warmup))(jax.random.key(seed))
+    v = to_np(v)
+    if sharpen:
+        lg = v["params"]["text_decoder"]["logit"]
+        lg["kernel"] = (rng.normal(size=lg["kernel"].shape) * 1.5).astype(np.float32)
+        lg["bias"] = (rng.normal(size=lg["bias"].shape) * 0.5).astype(np.float32)
+    tm = TModel(vocab_size=vocab, **TINY).eval()
+    load_flax_variables(tm, v)
+    return jm, v, tm, batch
+
+
+class Tok:
+    """Minimal tokenizer surface of the generate steps (ids only)."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+        self.bos_id, self.eos_id, self.pad_id, self.unk_id = vocab - 2, vocab - 1, 0, 4
+
+    def get_vocab_size(self):
+        return self.vocab
+
+
+def torch_batch(batch):
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
