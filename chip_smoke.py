@@ -5,12 +5,15 @@
 Phases, in order (any failure raises and exits non-zero; nothing is skipped):
 
 1. the device: torch's name and nvidia-smi's name and power limit;
-2. build every kernel of the serving path from csrc/ (one nvcc per source, in
-   parallel), then hold each against its plain PyTorch version on the card at
-   the main-path shapes, with the tolerance stated, and time kernel, plain
-   version and one library call (CUDA events, median, L2 flushed before each
-   launch) beside the bound (bytes over 3.35 TB/s or operations over the
-   peak rate, the larger);
+2. build every kernel from csrc/ (one nvcc per source, in parallel), then
+   hold each against its plain PyTorch version on the card at the shapes its
+   path gives it, with the tolerance stated, and time kernel, plain version
+   and one library call (CUDA events, median, L2 flushed before each launch)
+   beside the bound (bytes over 3.35 TB/s or operations over the peak rate,
+   the larger). K3 (fusion attention) runs at the CLI default layout (32
+   anchors, 64 images) and the flagship layout (64 anchors, 128 images), T 50,
+   8 heads, dk 2048, bf16 and float32, on strided views as the module passes
+   them, with anchors of 0 (self slot), 1 and 3 partners;
 3. a correctness check on a small input: the full-width flagship at float32
    decodes two studies through the serving path (lineage kernel + fused tail)
    and through the eval path (reorder caches, plain vocab tail); the best
@@ -21,7 +24,16 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    studies (64 anchors + 64 aux views, with indication) through ReportServer
    at beam 3; every launch counter is set to 0 just before and read just
    after, and each kernel must have been launched (K1 three times per step);
-5. a JSON line of every ported kernel, then the result line.
+5. the fusion module at full width (d_vf 2048, wide qkv, 8 heads, T 50, the
+   flagship layout): BatchedCrossViewAttention(use_pallas=True) against the
+   dense route and the grouped route (max_partners=3) with one weight set, at
+   float32 and bf16; K3's count is set to 0 before and must rise;
+6. the serve CLI in-process at full width and every CLI default but bf16
+   (ResNet-101 @ 224, dense fusion, 768x6 encoder, R2Gen 512x3, beam 3, batch
+   32 + 32 aux, uint8 images) over a synthetic dataset written to a temporary
+   directory with a 30000-word tokenizer; one non-empty report per test
+   study, K1:K2 launches 3:1;
+7. a JSON line of every ported kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -44,6 +56,13 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor / fp32
 K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}   # bf16: one ulp at |x| in [4, 8)
 K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
+# K3: float32 sums over dk 2048 in another order; bf16 one output ulp at |x| in [4, 8)
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
+# fusion module, kernel route vs dot_attention routes: float32 summation order;
+# bf16 the dense route rounds the probabilities to bf16 and fc_o rounds again
+# (4 ulps at |x| in [2, 4))
+FUSION_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
+PARTNER_CYCLE = (0, 1, 3, 0)   # same-study partners of anchor i: PARTNER_CYCLE[i % 4]
 
 
 def log(*a):
@@ -159,6 +178,245 @@ def check_fused_topk(dev, flush, g, dtype, suppress):
                 library_ms=lib_ms)
 
 
+def partner_layout(n_anchor):
+    """Anchors first, then aux views: anchor i has PARTNER_CYCLE[i % 4]
+    partner views (one aux slot per partner, so n_aux == n_anchor). Returns
+    pids [2 * n_anchor] int32 and the module's attend mask [Q, B] bool
+    (partners, or the self slot for a partnerless anchor)."""
+    pids = list(range(n_anchor))
+    for i in range(n_anchor):
+        pids += [i] * PARTNER_CYCLE[i % 4]
+    assert len(pids) == 2 * n_anchor
+    pids = np.asarray(pids, np.int32)
+    b = len(pids)
+    attend = (pids[:n_anchor, None] == pids[None, :]) & (
+        np.arange(n_anchor)[:, None] != np.arange(b)[None, :])
+    attend |= (np.arange(n_anchor)[:, None] == np.arange(b)[None, :]) & ~attend.any(
+        1, keepdims=True)
+    return pids, attend
+
+
+def sdpa_backend(q, k, v, mask):
+    """The first SDPA backend that takes these inputs (flash, efficient,
+    cudnn, math): what a plain F.scaled_dot_product_attention call runs."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")    # each refusal warns its reason
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return be.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
+    from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
+                                                      masked_cross_view_attention_plain)
+
+    t, h, dk = 50, 8, 2048
+    _, attend_np = partner_layout(n_anchor)
+    b = attend_np.shape[1]
+    n = b * t
+    # strided views of projection outputs, as BatchedCrossViewAttention passes them
+    xq = torch.randn(n_anchor, t, h * dk, generator=g, device=dev).to(dtype)
+    xk = torch.randn(b, t, h * dk, generator=g, device=dev).to(dtype)
+    xv = torch.randn(b, t, h * dk, generator=g, device=dev).to(dtype)
+    q = xq.reshape(n_anchor, t, h, dk).transpose(1, 2)
+    k = xk.reshape(n, h, dk).transpose(0, 1)
+    v = xv.reshape(n, h, dk).transpose(0, 1)
+    attend = torch.as_tensor(attend_np, device=dev)
+    got = masked_cross_view_attention(q, k, v, attend, t)
+    want = masked_cross_view_attention_plain(q, k, v, attend, t)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = K3_TOL[dtype]
+    if not err <= tol:
+        raise AssertionError(f"fusion_attention Q={n_anchor} B={b} {dtype}: max abs err "
+                             f"{err} > {tol}")
+    del want
+    ms = time_ms(lambda: masked_cross_view_attention(q, k, v, attend, t), flush, reps=10)
+    plain_ms = time_ms(lambda: masked_cross_view_attention_plain(q, k, v, attend, t), flush,
+                       reps=5)
+    lib_ms, backend = None, "not timed"
+    if library:
+        # library yardstick: SDPA, boolean [Q, 1, 1, N] mask, k/v expanded to Q
+        mask = attend.repeat_interleave(t, dim=1)[:, None, None, :]
+        ke, ve = k[None].expand(n_anchor, h, n, dk), v[None].expand(n_anchor, h, n, dk)
+        backend = sdpa_backend(q, ke, ve, mask)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask),
+                         flush, reps=5)
+        del mask, ke, ve
+    # this data's work: q, out and mask once, the K/V rows of every sample some
+    # anchor attends once; QK and PV over each anchor's attended samples only
+    isz = q.element_size()
+    rows = int(attend_np.any(axis=0).sum()) * t
+    nbytes = 2 * q.numel() * isz + 2 * rows * h * dk * isz + attend_np.size
+    flops = 4 * t * t * dk * h * int(attend_np.sum())
+    bms, by = bound_ms(nbytes, flops, dtype)
+    log(f"kernel fusion_attention Q={n_anchor} B={b} T={t} h={h} dk={dk} "
+        f"{str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+        f"(backend {backend}) bound_ms={bms:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, sdpa_backend=backend)
+
+
+def check_fusion_module(dev, seed):
+    """BatchedCrossViewAttention at full width: the kernel route against the
+    dense and grouped dot_attention routes, one weight set, float32 and bf16.
+    Returns K3's launches in this phase (its count is set to 0 first)."""
+    from evoke_tpu_torch.models.fusion import BatchedCrossViewAttention, same_study_matrix
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.params import init_params_
+
+    d, heads, t, n_anchor = 2048, 8, 50, 64
+    pids_np, _ = partner_layout(n_anchor)
+    pids = torch.as_tensor(pids_np, device=dev)
+    valid = torch.ones(len(pids_np), dtype=torch.bool, device=dev)
+    study = same_study_matrix(pids[:n_anchor], pids, valid[:n_anchor], valid)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    x = torch.randn(len(pids_np), t, d, generator=g, device=dev)
+    with torch.device(dev):
+        ref = init_params_(BatchedCrossViewAttention(d, heads, wide_qkv=True), seed)
+    weights = ref.state_dict()
+    del ref
+    masked_cross_view_attention.launches = 0
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = {}
+        for name, kw in (("kernel", dict(use_pallas=True)), ("dense", {}),
+                         ("grouped", dict(max_partners=3))):
+            with torch.device(dev):
+                m = BatchedCrossViewAttention(d, heads, wide_qkv=True, dtype=dtype, **kw)
+            m.load_state_dict(weights)
+            with torch.inference_mode():
+                xd = x.to(dtype)
+                outs[name] = m(xd[:n_anchor], xd, study).float()
+            del m
+        torch.cuda.synchronize()
+        tol = FUSION_TOL[dtype]
+        for other in ("dense", "grouped"):
+            err = (outs["kernel"] - outs[other]).abs().max().item()
+            errs[f"{str(dtype)[6:]}_kernel_vs_{other}"] = err
+            if not err <= tol:
+                raise AssertionError(f"fusion module {dtype}: kernel route vs {other} "
+                                     f"route max abs err {err} > {tol}")
+        log(f"fusion module (d 2048, wide qkv, 8 heads, T 50, Q 64, B 128) "
+            f"{str(dtype)[6:]}: kernel vs dense {errs[f'{str(dtype)[6:]}_kernel_vs_dense']:.3e}"
+            f", vs grouped {errs[f'{str(dtype)[6:]}_kernel_vs_grouped']:.3e} (tol {tol})")
+    n_k3 = masked_cross_view_attention.launches
+    if n_k3 <= 0:
+        raise AssertionError("fusion module phase: masked_cross_view_attention never launched")
+    torch.cuda.empty_cache()
+    return n_k3, errs
+
+
+def serve_cli(seed):
+    """The serve CLI in-process at full width over a synthetic dataset: every
+    CLI default but bf16. Returns the phase's numbers."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from evoke_tpu_torch import cli, serve
+    from evoke_tpu_torch.data.datasets import load_annotation, parse_finetune
+    from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
+    from evoke_tpu_torch.data.tokenizer import WordTokenizer
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t0 = time.perf_counter()
+        ann = write_synthetic_dataset(root, n_train=8, n_val=0, n_test=160, image_size=224,
+                                      seed=seed)
+        has_ind, no_ind = parse_finetune(load_annotation(ann), "test")
+        if len(has_ind) < 96 or not no_ind:
+            raise AssertionError(f"synthetic split: {len(has_ind)} studies with "
+                                 f"indication, {len(no_ind)} without")
+        # a 30000-word vocab where build_tokenizer looks: the dataset's words first
+        words = {w: i for w, i in WordTokenizer.train(
+            r["report"] for r in load_annotation(ann)["train"]).vocab.items()
+            if w not in ("[BOS]", "[EOS]")}                  # re-appended last
+        for i in range(30000 - 2 - len(words)):
+            words[f"w{i}"] = len(words)
+        tok = WordTokenizer(words)
+        assert tok.get_vocab_size() == 30000
+        tok_dir = os.path.join(root, "tok")
+        os.makedirs(tok_dir)
+        tok.save(os.path.join(tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
+        log(f"cli data: {len(has_ind)} test studies with indication, {len(no_ind)} "
+            f"without, 224 px .npy, {time.perf_counter() - t0:.1f}s")
+
+        stats = []
+        serve_fn = serve.ReportServer.serve
+
+        def recording_serve(self, *a, **kw):
+            out = serve_fn(self, *a, **kw)
+            stats.append(dict(self.stats))
+            return out
+
+        serve.ReportServer.serve = recording_serve
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        lineage_attention.launches = 0
+        fused_logit_topk.launches = 0
+        masked_cross_view_attention.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["serve", "--data.ann_path", ann, "--data.image_dir", root,
+                               "--data.tokenizer_dir", tok_dir,
+                               "--trainer.result_dir", os.path.join(root, "results"),
+                               "--model.dtype", "bfloat16"])
+            torch.cuda.synchronize()
+        finally:
+            serve.ReportServer.serve = serve_fn
+        wall = time.perf_counter() - t0
+        n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
+        n_k3 = masked_cross_view_attention.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        printed = buf.getvalue().strip().splitlines()
+        log("cli stdout: " + " | ".join(printed))
+        if rc != 0:
+            raise AssertionError(f"cli serve returned {rc}")
+        summary = json.loads(printed[-1])
+        csv_path = os.path.join(root, "results", "mimic_cxr", "serve", "v1",
+                                "serve_prediction.csv")
+        import csv
+
+        with open(csv_path, newline="") as f:
+            rows = list(csv.reader(f))
+    want_ids = sorted(e.id for e in has_ind + no_ind)
+    if rows[0] != ["images_id", "generated_reports", "ground_truth"]             or sorted(r[0] for r in rows[1:]) != want_ids:
+        raise AssertionError(f"cli csv: {len(rows) - 1} rows for {len(want_ids)} studies")
+    if not all(r[1].strip() for r in rows[1:]):
+        raise AssertionError("cli csv: empty report")
+    if n_k2 <= 0 or n_k1 != 3 * n_k2:
+        raise AssertionError(f"cli launch counts: lineage {n_k1}, fused {n_k2} "
+                             "(want 3:1, > 0)")
+    p50 = [s["batch_latency_p50_s"] for s in stats]
+    out = dict(reports=summary["reports"], reports_per_s=summary["reports_per_s"],
+               serve_wall_s=summary["wall_s"], batch_latency_p50_s=p50,
+               batches=[s["batches"] for s in stats], peak_mem_gib=peak_gib,
+               cli_wall_s=wall, launches_lineage=n_k1, launches_fused=n_k2,
+               launches_fusion_attention=n_k3)
+    log(f"cli serve: {summary['reports']} reports, reports_per_s="
+        f"{summary['reports_per_s']} (serve wall {summary['wall_s']} s; with/without "
+        f"indication batch_latency_p50_s={[round(x, 4) for x in p50]}), cli wall "
+        f"{wall:.1f}s, peak_mem_gib={peak_gib:.2f}, launches lineage={n_k1} fused={n_k2} "
+        f"fusion_attention={n_k3}")
+    return out
+
+
 def profile_serving(server, batches, top=15):
     """One served batch under torch.profiler: device busy share of the window
     (sum of kernel times over wall time; the profiler's own host cost lengthens
@@ -255,7 +513,7 @@ def main():
 
     # ---- phase 2: build, compare, time ----
     t0 = time.perf_counter()
-    built = _build.build_all(["lineage_attention", "fused_logit_topk"])
+    built = _build.build_all(["lineage_attention", "fused_logit_topk", "fusion_attention"])
     log(f"build: {', '.join(p.name for p in built.values())} in "
         f"{time.perf_counter() - t0:.1f}s")
     g = torch.Generator(device=dev)
@@ -270,6 +528,12 @@ def main():
     for dtype in (torch.bfloat16, torch.float32):
         for suppress in ((), (4,)):
             k2[(dtype, suppress)] = check_fused_topk(dev, flush, g, dtype, suppress)
+    k3 = {}
+    for n_anchor in (32, 64):
+        for dtype in (torch.bfloat16, torch.float32):
+            k3[(dtype, n_anchor)] = check_fusion_attention(
+                dev, flush, g, dtype, n_anchor, library=dtype == torch.bfloat16)
+            torch.cuda.empty_cache()
     del flush
 
     # ---- phase 3: small-input reference check at float32 ----
@@ -332,9 +596,22 @@ def main():
         f"{peak_gib:.2f} decode_steps={n_k2} launches lineage={n_k1} fused={n_k2}")
 
     profile = profile_serving(server, batches[:1]) if args.profile else None
+    del model, server, batches
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: the fusion module through K3 ----
+    t0 = time.perf_counter()
+    n_k3, fusion_errs = check_fusion_module(dev, args.seed)
+    log(f"fusion module phase: launches fusion_attention={n_k3}, "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 6: the serve CLI ----
+    cli_res = serve_cli(args.seed)
 
     main1 = k1[(torch.bfloat16, 100, False)]
     main2 = k2[(torch.bfloat16, (4,))]
+    main3 = dict(k3[(torch.bfloat16, 64)])
+    main3.pop("sdpa_backend")
     kernels = {"kernels": [
         dict(name="lineage_attention", route="cuda",
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
@@ -342,6 +619,9 @@ def main():
         dict(name="fused_logit_topk", route="cuda",
              source="evoke_tpu_torch/csrc/fused_logit_topk.cu",
              replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2),
+        dict(name="masked_cross_view_attention", route="cuda",
+             source="evoke_tpu_torch/csrc/fusion_attention.cu",
+             replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3),
     ]}
     if args.out:
         detail = {
@@ -349,6 +629,9 @@ def main():
             "lineage_attention": {f"{str(k[0])[6:]}_L{k[1]}_{'ring' if k[2] else 'batch'}": v
                                   for k, v in k1.items()},
             "fused_logit_topk": {f"{str(k[0])[6:]}_sup{len(k[1])}": v for k, v in k2.items()},
+            "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
+            "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
+            "cli_serve": cli_res,
             "main_path": dict(st, peak_mem_gib=peak_gib, launches_lineage=n_k1,
                               launches_fused=n_k2, reference_token_agreement=agree),
             "kernels": kernels["kernels"], "profile": profile,

@@ -1,6 +1,16 @@
-"""Host-side prefetch for serving (the port's counterpart of the prefetchers in
-evoke_tpu/data/batching.py:142-200): a background thread pulls loader batches
-and ``device_prefetch`` copies them from pinned host memory to the card with
+"""Static-shape multiview batching and host-side prefetch for serving (the
+port's counterparts of evoke_tpu/data/batching.py).
+
+``MultiviewBatcher`` keeps the JAX package's static batch layout (the
+reference's collate, dataloaders_v0401.py:60-116, made static): the first
+``n_anchor`` image slots are study anchors aligned with the per-study texts,
+the next ``n_aux_slots`` hold auxiliary views deduplicated by path (padding
+slots invalid, with unique negative pid codes; views beyond capacity are
+dropped and counted in ``aux_dropped``), text is padded to ``max_seq_len``.
+Images are decoded and transformed in a thread pool.
+
+``Prefetcher`` pulls loader batches on a background thread, and
+``device_prefetch`` copies them from pinned host memory to the card with
 ``non_blocking=True``, ``depth`` batches ahead of the consumer."""
 
 from __future__ import annotations
@@ -8,10 +18,125 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from typing import List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from evoke_tpu_torch.data.datasets import Example
+from evoke_tpu_torch.data.tokenizer import WordTokenizer
+from evoke_tpu_torch.data.transforms import ImageTransform, load_image
+
+
+class MultiviewBatcher:
+    """Yields static-shape batches from a list of Examples."""
+
+    def __init__(self, examples: Sequence[Example], tokenizer: WordTokenizer,
+                 transform: ImageTransform, *, n_anchor: int, n_aux_slots: Optional[int] = None,
+                 max_seq_len: int = 100, image_dir: str = "", shuffle: bool = False,
+                 with_indication: bool = False, multiview: bool = True,
+                 text_field: str = "align_text", add_bos_eos: bool = False,
+                 seed: int = 0, num_workers: int = 8, drop_last: bool = False):
+        self.examples = list(examples)
+        self.tokenizer = tokenizer
+        self.transform = transform
+        self.n_anchor = n_anchor
+        self.n_aux = n_aux_slots if n_aux_slots is not None else (n_anchor if multiview else 0)
+        self.max_seq_len = max_seq_len
+        self.image_dir = image_dir
+        self.shuffle = shuffle
+        self.with_indication = with_indication
+        self.multiview = multiview
+        self.text_field = text_field
+        self.add_bos_eos = add_bos_eos
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.aux_dropped = 0  # running count of truncated aux views (never silent)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.examples)
+        if self.drop_last:
+            return n // self.n_anchor
+        return (n + self.n_anchor - 1) // self.n_anchor
+
+    def _encode_text(self, text: str) -> np.ndarray:
+        return self.tokenizer.encode_padded(text, self.max_seq_len,
+                                            add_bos_eos=self.add_bos_eos)
+
+    def _build_batch(self, group: List[Example], rng: np.random.Generator,
+                     pool: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
+        n_a, n_x = self.n_anchor, self.n_aux
+        total = n_a + n_x
+        s = self.transform.image_size
+        img_dtype = np.uint8 if getattr(self.transform, "output_uint8", False) else np.float32
+        images = np.zeros((total, s, s, 3), img_dtype)
+        pids = np.arange(total, dtype=np.int32) * -1 - 1  # unique negatives by default
+        valid = np.zeros(total, bool)
+        ids = np.zeros((n_a, self.max_seq_len), np.int32)
+        mask = np.zeros((n_a, self.max_seq_len), np.int32)
+        inc_ids = np.zeros((n_a, self.max_seq_len), np.int32)
+        image_ids: List[str] = [""] * n_a
+        gts: List[str] = [""] * n_a
+
+        # assign codes per study
+        jobs = []  # (slot, path)
+        aux_slot = n_a
+        seen_info: Dict[str, int] = {}
+        for i, ex in enumerate(group):
+            pids[i] = i
+            valid[i] = True
+            image_ids[i] = ex.id
+            gts[i] = ex.report
+            text = getattr(ex, self.text_field)
+            ids[i] = self._encode_text(text)
+            if self.with_indication:
+                inc_ids[i] = self.tokenizer.encode_padded(ex.indication, self.max_seq_len)
+            jobs.append((i, ex.anchor_path))
+            seen_info[ex.anchor_path] = i
+            if self.multiview:
+                for p in ex.aux_paths:
+                    if p in seen_info:
+                        continue  # dedup by image path (reference: patient_info)
+                    if aux_slot >= total:
+                        self.aux_dropped += 1
+                        continue
+                    seen_info[p] = aux_slot
+                    pids[aux_slot] = i
+                    valid[aux_slot] = True
+                    jobs.append((aux_slot, p))
+                    aux_slot += 1
+
+        def work(slot_path):
+            slot, path = slot_path
+            img = load_image(path, self.image_dir)
+            images[slot] = self.transform(img, rng=np.random.default_rng(
+                rng.integers(0, 2**31)))
+
+        list(pool.map(work, jobs))
+        mask = (ids != self.tokenizer.pad_id).astype(np.int32)
+        batch = {"images": images, "ids": ids, "mask": mask, "pids": pids, "valid": valid,
+                 "_image_ids": image_ids, "_gts": gts}
+        if self.with_indication:
+            batch["inc_ids"] = inc_ids
+            batch["inc_mask"] = (inc_ids != self.tokenizer.pad_id).astype(np.int32)
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.examples))
+        rng = np.random.default_rng(self.seed + self._epoch)
+        self._epoch += 1
+        if self.shuffle:
+            rng.shuffle(order)
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            for start in range(0, len(order), self.n_anchor):
+                idx = order[start:start + self.n_anchor]
+                if len(idx) < self.n_anchor and self.drop_last:
+                    break
+                group = [self.examples[i] for i in idx]
+                yield self._build_batch(group, rng, pool)
 
 
 def to_device(batch, device: torch.device):

@@ -9,6 +9,7 @@ lookup per word at the data edge, never on the model's hot path.
 from __future__ import annotations
 
 import json
+import os
 import re
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -204,3 +205,32 @@ class WordTokenizer:
             vocab[w] = len(vocab)
         return cls(vocab, model=model, lowercase=lowercase)
 
+
+
+def build_tokenizer(tokenizer_dir: str, data_name: str, ann_path: Optional[str] = None,
+                    model: str = "wordlevel", tokenizer_type: str = "uncased",
+                    is_same_tokenizer: bool = False) -> WordTokenizer:
+    """Train-or-load, with the reference's file layout
+    ``{dir}/{data}_{model}_{type}_tokenizer.json``: an existing file is
+    loaded, else a wordlevel vocab is trained on the train split's reports
+    (each study id once) and saved there."""
+    if is_same_tokenizer:
+        data_name = "mimic_cxr"
+    os.makedirs(tokenizer_dir, exist_ok=True)
+    path = os.path.join(tokenizer_dir, f"{data_name}_{model}_{tokenizer_type}_tokenizer.json")
+    lowercase = tokenizer_type == "uncased"
+    if os.path.exists(path):
+        return WordTokenizer.from_file(path, lowercase=lowercase)
+    if not ann_path:
+        raise FileNotFoundError(f"no tokenizer at {path} and no ann_path to train from")
+    with open(ann_path) as f:
+        ann = json.load(f)
+    seen, corpus = set(), []
+    for item in ann["train"]:
+        if item["id"] in seen:
+            continue
+        seen.add(item["id"])
+        corpus.append(item["report"].lower() if lowercase else item["report"])
+    tok = WordTokenizer.train(corpus, model=model, lowercase=lowercase)
+    tok.save(path)
+    return tok

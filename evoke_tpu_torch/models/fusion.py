@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention
+from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
 
 
 def same_study_matrix(q_pids, k_pids, q_valid, k_valid):
@@ -50,17 +51,14 @@ class BatchedCrossViewAttention(nn.Module):
     ``max_partners=G``: the partner rows are gathered per anchor (lowest row
     first, plus a self-row slot for partnerless anchors) and attention runs
     over (1+G)*T keys — identical whenever every anchor has <= G partners.
-    ``use_pallas=True`` (the fused fusion-attention kernel K3) is not ported
-    yet (ROADMAP B3) and raises."""
+    ``use_pallas=True`` runs the dense form through the fusion-attention
+    kernel K3 (``ops/fusion_attention.py``), also when ``max_partners`` is
+    set, as the JAX module does without dropout (this module has none)."""
 
     def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
                  use_pallas: bool = False, max_partners: Any = None, dtype=torch.float32):
         super().__init__()
-        if use_pallas:
-            raise NotImplementedError(
-                "BatchedCrossViewAttention(use_pallas=True): the fusion-attention "
-                "kernel (K3, evoke_tpu/ops/fusion_attention.py) is not ported yet "
-                "(ROADMAP B3)")
+        self.use_pallas = use_pallas
         self.num_heads = num_heads
         self.dk = d_model if wide_qkv else d_model // num_heads
         self.max_partners = max_partners
@@ -82,7 +80,7 @@ class BatchedCrossViewAttention(nn.Module):
         v = self.fc_v(kv)
         has_partner = study_mask.any(-1)
 
-        if self.max_partners is not None:
+        if self.max_partners is not None and not self.use_pallas:
             g = min(int(self.max_partners), b)
             cols = torch.arange(b, device=dev)[None, :]
             order = torch.sort(torch.where(study_mask, cols, b + cols), dim=1).values[:, :g]
@@ -103,8 +101,16 @@ class BatchedCrossViewAttention(nn.Module):
         self_mask = ((torch.arange(qn, device=dev)[:, None]
                       == torch.arange(b, device=dev)[None, :]) & ~has_partner[:, None])
         attend = study_mask | self_mask
-        mask4 = attend.repeat_interleave(t, dim=1)[:, None, None, :]
-        out, _ = dot_attention(q, k[None], v[None], mask=mask4)
+        if self.use_pallas:
+            out = masked_cross_view_attention(q, k, v, attend, t_tokens=t)
+        else:
+            # the anchors' rows as one [1, h, Q*T, dk] query block: the same
+            # products as q [Q, h, T, dk] against k[None], without matmul
+            # copying k and v once per anchor to broadcast them
+            qf = q.transpose(0, 1).reshape(1, h, qn * t, dk)
+            mask = attend.repeat_interleave(t, dim=1).repeat_interleave(t, dim=0)
+            out, _ = dot_attention(qf, k[None], v[None], mask=mask[None, None])
+            out = out[0].reshape(h, qn, t, dk).transpose(0, 1)
         return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
 
 

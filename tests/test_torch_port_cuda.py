@@ -6,13 +6,16 @@ so it runs on the H100's machine, where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: float32 1e-5 (summation order); bf16 outputs 2e-2 (one bf16 ulp
-near 1), top-k values 1e-2 (one bf16 ulp of the logits' scale)."""
+near 1), top-k values 1e-2 (one bf16 ulp of the logits' scale). The fusion
+attention at float32 2e-5 (its scores sum over dk 2048 in another order)."""
 
 import numpy as np
 import pytest
 import torch
 
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk, fused_logit_topk_plain
+from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
+                                                  masked_cross_view_attention_plain)
 from evoke_tpu_torch.ops.lineage_attention import lineage_attention, lineage_attention_plain
 
 
@@ -67,3 +70,30 @@ class TestOnCard:
             torch.testing.assert_close(got[1], want[1])
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(got[0], want[0], rtol=1e-2, atol=1e-2)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("t,dk", [(50, 2048), (70, 96), (5, 16)])
+    def test_fusion_attention_kernel(self, rng, cuda_device, dtype, t, dk):
+        """Strided views as the module passes them; anchors with 0 (self
+        slot), 1 and 3 partners; T above one 64-row tile and dk off the
+        256-column chunk."""
+        qn, b, h = 4, 6, 2
+        dev = lambda x: torch.as_tensor(x).to(cuda_device).to(dtype)
+        xq = dev(rng.normal(size=(qn, t, h * dk)).astype(np.float32))
+        xk = dev(rng.normal(size=(b, t, h * dk)).astype(np.float32))
+        xv = dev(rng.normal(size=(b, t, h * dk)).astype(np.float32))
+        q = xq.reshape(qn, t, h, dk).transpose(1, 2)
+        k = xk.reshape(b * t, h, dk).transpose(0, 1)
+        v = xv.reshape(b * t, h, dk).transpose(0, 1)
+        attend = np.zeros((qn, b), bool)
+        attend[0, 0] = True
+        attend[1, 1] = attend[1, 4] = True
+        attend[2, [0, 2, 3, 5]] = True
+        attend[3, 5] = True
+        attend = torch.as_tensor(attend).to(cuda_device)
+        n0 = masked_cross_view_attention.launches
+        got = masked_cross_view_attention(q, k, v, attend, t)
+        assert masked_cross_view_attention.launches == n0 + 1
+        want = masked_cross_view_attention_plain(q, k, v, attend, t)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -94,11 +94,6 @@ def test_multiview_fusion(rng, max_partners, wide):
     assert tf.max_partners_in(pids, valid, 3) == jf.max_partners_in(pids, valid, 3) == 2
 
 
-def test_fusion_kernel_option_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        tf.BatchedCrossViewAttention(16, 2, use_pallas=True)
-
-
 def test_text_encoder(rng):
     ids = rng.integers(0, 40, size=(3, 7)).astype(np.int32)
     mask = np.ones((3, 7), np.int32)
