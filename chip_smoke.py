@@ -8,9 +8,19 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
 2. build every kernel from csrc/ (one nvcc per source, in parallel), then
    hold each against its plain PyTorch version on the card at the shapes its
    path gives it, with the tolerance stated, and time kernel, plain version
-   and one library call (CUDA events, median, L2 flushed before each launch)
-   beside the bound (bytes over 3.35 TB/s or operations over the peak rate,
-   the larger). K3 (fusion attention) runs at the CLI default layout (32
+   and one library call (CUDA events, median; before each launch a 64 MB
+   buffer is zeroed to evict the L2, so host time that outlasts the zeroing
+   is timed too) beside the bound (bytes over 3.35 TB/s or operations over
+   the peak rate, the larger). Each kernel (K1 and K2 with their library
+   calls) is timed a second way, device-only: the device spins ~0.1 ms
+   before each launch, so the host enqueues the call meanwhile and the
+   events see only the device's work. K2 (fused logit + top-k) runs at the
+   flagship's N 192 and the CLI's N 96 (32 studies x beam 3) in bf16, and at
+   N 192 in float32, with and without a suppressed id; kernel and library
+   call (addmm with the bias, logsumexp, topk) are timed in turns, library,
+   kernel, kernel, library; K2's wrapper's host time per call is read on the
+   host clock, and its registers, shared memory and spills from the
+   -Xptxas -v log. K3 (fusion attention) runs at the CLI default layout (32
    anchors, 64 images) and the flagship layout (64 anchors, 128 images), T 50,
    8 heads, dk 2048, bf16 and float32, on strided views as the module passes
    them, with anchors of 0 (self slot), 1 and 3 partners;
@@ -41,8 +51,10 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -63,26 +75,55 @@ K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
 # (4 ulps at |x| in [2, 4))
 FUSION_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 PARTNER_CYCLE = (0, 1, 3, 0)   # same-study partners of anchor i: PARTNER_CYCLE[i % 4]
+PORTED_KERNELS = ("lineage_kernel", "tile_kernel_bf16", "merge_kernel_warp")  # profiled
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, flush, reps=30):
-    """Median CUDA-event time of ``fn`` with the L2 evicted before each launch."""
+HOST_HEADSTART_CYCLES = 200_000    # ~0.1 ms of device spin before each timed launch
+
+
+def time_samples(fn, flush, reps, device_only=False):
+    """CUDA-event times of ``reps`` calls of ``fn``, the L2 evicted before
+    each by zeroing ``flush`` (> 50 MB). Host time of ``fn`` that outlasts
+    the zeroing shows in the events. ``device_only``: the device also spins
+    before the start event, so the host enqueues the call's launches
+    meanwhile and the events time the device's work alone."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(HOST_HEADSTART_CYCLES)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
         events.append((s, e))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def time_ms(fn, flush, reps=30, device_only=False):
+    """Median CUDA-event time of ``fn`` (see ``time_samples``)."""
+    return statistics.median(time_samples(fn, flush, reps, device_only))
+
+
+def host_us(fn, calls=1000):
+    """Median host-clock time of one call of ``fn`` in microseconds: the
+    device is synchronized between calls, not inside the timed span."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -121,11 +162,13 @@ def check_lineage(dev, flush, g, dtype, lmax, ring):
     qh = q.reshape(b, kbeam, heads, dh).transpose(1, 2)
     kh = ck.reshape(b, kbeam * lmax, heads, dh).transpose(1, 2)
     vh = cv.reshape(b, kbeam * lmax, heads, dh).transpose(1, 2)
-    ms = time_ms(lambda: lineage_attention(q, ck, cv, anc, pos, heads, age=age), flush)
+    kernel = functools.partial(lineage_attention, q, ck, cv, anc, pos, heads, age=age)
+    library = functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
+    ms, lib_ms = time_ms(kernel, flush), time_ms(library, flush)
+    dev_ms = time_ms(kernel, flush, device_only=True)
+    dev_lib_ms = time_ms(library, flush, device_only=True)
     plain_ms = time_ms(lambda: lineage_attention_plain(q, ck, cv, anc, pos, heads, age=age),
                        flush)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                     flush)
     # bytes this data needs: the K and V rows some query attends, q, out, anc, age
     rows = int(mask[:, 0].any(dim=1).sum())
     isz = q.element_size()
@@ -134,15 +177,52 @@ def check_lineage(dev, flush, g, dtype, lmax, ring):
     bms, by = bound_ms(nbytes, flops, dtype)
     log(f"kernel lineage_attention L={lmax} {'ring' if ring else 'batch'} "
         f"{str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})")
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); "
+        f"device-only ms={dev_ms:.4f} sdpa_ms={dev_lib_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_only_ms=dev_ms, device_only_library_ms=dev_lib_ms)
 
 
-def check_fused_topk(dev, flush, g, dtype, suppress):
-    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk, fused_logit_topk_plain
+def time_in_turns(kernel, library, flush, reps=30, device_only=False):
+    """Kernel and library call timed in turns (library, kernel, kernel,
+    library) within one call: the median of each one's pooled samples."""
+    samples = {"kernel": [], "library": []}
+    for name, fn in (("library", library), ("kernel", kernel), ("kernel", kernel),
+                     ("library", library)):
+        samples[name] += time_samples(fn, flush, reps, device_only)
+    return statistics.median(samples["kernel"]), statistics.median(samples["library"])
 
-    n, d, v, k = 192, 512, 30001, 3
+
+def ptxas_report(log_path, kernels=("tile_kernel_bf16", "merge_kernel_warp")):
+    """Registers, static shared memory and spill bytes of each instantiation
+    of ``kernels`` from nvcc's -Xptxas -v log."""
+    out, name = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"(?:entry function '|Function properties for )(\w+)", line)
+            if m:
+                k = re.search(r"(%s)ILi(\d+)E" % "|".join(kernels), m.group(1))
+                name = f"{k.group(1)}<{k.group(2)}>" if k else None
+                continue
+            if name is None:
+                continue
+            rec = out.setdefault(name, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rec.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                rec["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def check_fused_topk(dev, flush, g, dtype, suppress, n):
+    from evoke_tpu_torch.ops.fused_logit_topk import (fused_logit_topk, fused_logit_topk_plain,
+                                                      launch_plan)
+
+    d, v, k = 512, 30001, 3
     h = torch.randn(n, d, generator=g, device=dev).to(dtype)
     w = (torch.randn(v, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
     b = (torch.randn(v, generator=g, device=dev) * 0.1).to(dtype)
@@ -155,27 +235,36 @@ def check_fused_topk(dev, flush, g, dtype, suppress):
     # an index may differ from the plain version's only at a near-tie
     bad_idx = ((gi != pi) & ((gv - pv).abs() > tol)).sum().item()
     if not (err <= tol and lse_err <= 1e-3 and bad_idx == 0):
-        raise AssertionError(f"fused_logit_topk {dtype} suppress={suppress}: vals err {err} "
-                             f"(tol {tol}), lse err {lse_err} (tol 1e-3), {bad_idx} index "
-                             "mismatches outside near-ties")
+        raise AssertionError(f"fused_logit_topk N={n} {dtype} suppress={suppress}: vals err "
+                             f"{err} (tol {tol}), lse err {lse_err} (tol 1e-3), {bad_idx} "
+                             "index mismatches outside near-ties")
     if any((gi == s).any().item() for s in suppress):
         raise AssertionError("fused_logit_topk returned a suppressed id")
-    ms = time_ms(lambda: fused_logit_topk(h, w, b, k, suppress), flush)
-    plain_ms = time_ms(lambda: fused_logit_topk_plain(h, w, b, k, suppress), flush)
 
-    def library():
-        logits = torch.matmul(h, w.t())
+    def library():   # the same function in PyTorch calls: bias in the product's epilogue
+        logits = torch.addmm(b, h, w.t())
         return torch.logsumexp(logits.float(), -1), torch.topk(logits, k)
 
-    lib_ms = time_ms(library, flush)
+    kernel = functools.partial(fused_logit_topk, h, w, b, k, suppress)
+    ms, lib_ms = time_in_turns(kernel, library, flush)
+    dev_ms, dev_lib_ms = time_in_turns(kernel, library, flush, device_only=True)
+    wrapper_us = host_us(kernel)
+    plain_ms = time_ms(lambda: fused_logit_topk_plain(h, w, b, k, suppress), flush)
     isz = h.element_size()
     nbytes = (v * d + n * d + v) * isz + n * k * 8 + n * 4
     bms, by = bound_ms(nbytes, 2 * n * d * v, dtype)
-    log(f"kernel fused_logit_topk {str(dtype)[6:]} suppress={list(suppress)}: "
+    log(f"kernel fused_logit_topk N={n} {str(dtype)[6:]} suppress={list(suppress)}: "
         f"max_abs_err={err:.3e} (tol {tol}) lse_err={lse_err:.3e} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} matmul_lse_topk_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+        f"plain_ms={plain_ms:.4f} addmm_lse_topk_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); "
+        f"device-only ms={dev_ms:.4f} addmm_lse_topk_ms={dev_lib_ms:.4f}; wrapper host "
+        f"{wrapper_us:.1f} us/call")
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=lib_ms, device_only_ms=dev_ms, device_only_library_ms=dev_lib_ms,
+               wrapper_host_us=wrapper_us)
+    if dtype == torch.bfloat16:
+        out["plan"] = launch_plan(n, d, v, k, sms=torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
+    return out
 
 
 def partner_layout(n_anchor):
@@ -240,7 +329,9 @@ def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
         raise AssertionError(f"fusion_attention Q={n_anchor} B={b} {dtype}: max abs err "
                              f"{err} > {tol}")
     del want
-    ms = time_ms(lambda: masked_cross_view_attention(q, k, v, attend, t), flush, reps=10)
+    kernel = functools.partial(masked_cross_view_attention, q, k, v, attend, t)
+    ms = time_ms(kernel, flush, reps=10)
+    dev_ms = time_ms(kernel, flush, reps=10, device_only=True)
     plain_ms = time_ms(lambda: masked_cross_view_attention_plain(q, k, v, attend, t), flush,
                        reps=5)
     lib_ms, backend = None, "not timed"
@@ -262,9 +353,9 @@ def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
     log(f"kernel fusion_attention Q={n_anchor} B={b} T={t} h={h} dk={dk} "
         f"{str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-        f"(backend {backend}) bound_ms={bms:.4f} ({by})")
+        f"(backend {backend}) bound_ms={bms:.4f} ({by}); device-only ms={dev_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, sdpa_backend=backend)
+                library_ms=lib_ms, device_only_ms=dev_ms, sdpa_backend=backend)
 
 
 def check_fusion_module(dev, seed):
@@ -435,12 +526,19 @@ def profile_serving(server, batches, top=15):
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / wall_us, "kernel_launches": sum(e.count for e in kern),
            "top": [{"name": e.key[:90], "count": e.count,
-                    "device_ms": e.self_device_time_total / 1e3} for e in kern[:top]]}
+                    "device_ms": e.self_device_time_total / 1e3} for e in kern[:top]],
+           "ported": {}}
+    for frag in PORTED_KERNELS:   # each hand-written kernel, wherever it ranks
+        hits = [e for e in kern if frag in e.key]
+        out["ported"][frag] = {"count": sum(e.count for e in hits),
+                               "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
     log(f"profile (1 batch): wall_ms={out['wall_ms']:.1f} device_busy_ms="
         f"{out['device_busy_ms']:.1f} busy_share={out['busy_share']:.3f} "
         f"kernel_launches={out['kernel_launches']}")
     for t in out["top"]:
         log(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
+    for frag, t in out["ported"].items():
+        log(f"  ported {frag}: {t['device_ms']:.3f} ms x{t['count']}")
     return out
 
 
@@ -487,7 +585,8 @@ def main():
     ap.add_argument("--out", default="", help="also write the results as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, serve one more batch under torch.profiler "
-                         "and print device busy share and the top kernels")
+                         "and print device busy share, the top kernels and each "
+                         "hand-written kernel's total")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -525,9 +624,20 @@ def main():
             for ring in (False, True):
                 k1[(dtype, lmax, ring)] = check_lineage(dev, flush, g, dtype, lmax, ring)
     k2 = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, n in ((torch.bfloat16, 192), (torch.bfloat16, 96), (torch.float32, 192)):
         for suppress in ((), (4,)):
-            k2[(dtype, suppress)] = check_fused_topk(dev, flush, g, dtype, suppress)
+            k2[(dtype, suppress, n)] = check_fused_topk(dev, flush, g, dtype, suppress, n)
+    k2_ptxas = ptxas_report(f"{built['fused_logit_topk']}.log")
+    for name, rec in sorted(k2_ptxas.items()):
+        log(f"ptxas {name}: {rec.get('registers')} registers, {rec.get('static_smem')} B "
+            f"static smem, spills {rec.get('spill_stores')} / {rec.get('spill_loads')} B")
+    for n in (192, 96):
+        plan = k2[(torch.bfloat16, (4,), n)]["plan"]
+        log(f"K2 bf16 plan N={n}: {plan['tiles']} tiles on {plan['grid']} blocks of "
+            f"{plan['threads']} threads, {plan['stages']} stages, {plan['smem_bytes']} B "
+            f"dynamic smem")
+    if not any(name.startswith("tile_kernel_bf16") for name in k2_ptxas):
+        raise AssertionError("no tile_kernel_bf16 entry in the -Xptxas -v log")
     k3 = {}
     for n_anchor in (32, 64):
         for dtype in (torch.bfloat16, torch.float32):
@@ -608,10 +718,10 @@ def main():
     # ---- phase 6: the serve CLI ----
     cli_res = serve_cli(args.seed)
 
-    main1 = k1[(torch.bfloat16, 100, False)]
-    main2 = k2[(torch.bfloat16, (4,))]
-    main3 = dict(k3[(torch.bfloat16, 64)])
-    main3.pop("sdpa_backend")
+    line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
+        k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
+        k3[(torch.bfloat16, 64)]))
     kernels = {"kernels": [
         dict(name="lineage_attention", route="cuda",
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
@@ -628,7 +738,9 @@ def main():
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "lineage_attention": {f"{str(k[0])[6:]}_L{k[1]}_{'ring' if k[2] else 'batch'}": v
                                   for k, v in k1.items()},
-            "fused_logit_topk": {f"{str(k[0])[6:]}_sup{len(k[1])}": v for k, v in k2.items()},
+            "fused_logit_topk": {f"{str(k[0])[6:]}_N{k[2]}_sup{len(k[1])}": v
+                                 for k, v in k2.items()},
+            "fused_logit_topk_ptxas": k2_ptxas,
             "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
             "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
             "cli_serve": cli_res,
