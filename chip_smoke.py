@@ -14,7 +14,15 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    the peak rate, the larger). Each kernel (K1 and K2 with their library
    calls) is timed a second way, device-only: the device spins ~0.1 ms
    before each launch, so the host enqueues the call meanwhile and the
-   events see only the device's work. K2 (fused logit + top-k) runs at the
+   events see only the device's work. K1 (lineage attention) runs at the
+   serving shape (64 samples x beam 3, d 512, 8 heads) at L 13 and 100, batch
+   and ring mode, bf16 and float32, with uniformly random lineages, and at L
+   100 bf16 with converged lineages (one shared ancestor row in every slot
+   but the last 5, as a real beam has); kernel and SDPA are timed in turns
+   both ways, the wrapper's host time is read on the host clock, its
+   registers, shared memory and spills from the -Xptxas -v log beside its
+   launch plan, and its device-only time at each cache length of the serving
+   schedule is printed on one line. K2 (fused logit + top-k) runs at the
    flagship's N 192 and the CLI's N 96 (32 studies x beam 3) in bf16, and at
    N 192 in float32, with and without a suppressed id; kernel and library
    call (addmm with the bias, logsumexp, topk) are timed in turns, library,
@@ -75,7 +83,9 @@ K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
 # (4 ulps at |x| in [2, 4))
 FUSION_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 PARTNER_CYCLE = (0, 1, 3, 0)   # same-study partners of anchor i: PARTNER_CYCLE[i % 4]
-PORTED_KERNELS = ("lineage_kernel", "tile_kernel_bf16", "merge_kernel_warp")  # profiled
+# each hand-written kernel of the serving path by a fragment of its name, for
+# the profile digest (a fragment that matches no launch fails the profile)
+PORTED_KERNELS = ("lineage_kernel", "tile_kernel_bf16", "merge_kernel_warp")
 
 
 def log(*a):
@@ -132,8 +142,8 @@ def bound_ms(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_lineage(dev, flush, g, dtype, lmax, ring):
-    from evoke_tpu_torch.ops.lineage_attention import (lineage_attention,
+def check_lineage(dev, flush, g, dtype, lmax, ring, lineage="random"):
+    from evoke_tpu_torch.ops.lineage_attention import (attended_rows, lineage_attention,
                                                        lineage_attention_plain,
                                                        lineage_masks)
 
@@ -144,6 +154,9 @@ def check_lineage(dev, flush, g, dtype, lmax, ring):
     cv = torch.randn(n, lmax, d, generator=g, device=dev).to(dtype)
     anc = torch.randint(0, kbeam, (b, kbeam, lmax), generator=g, device=dev,
                         dtype=torch.int32)
+    if lineage == "converged":   # one shared ancestor row in every slot but the last 5
+        anc[:, :, :lmax - 5] = torch.randint(0, kbeam, (b, 1, 1), generator=g, device=dev,
+                                             dtype=torch.int32)
     if ring:
         pos = int(torch.randint(0, lmax, (1,), generator=g, device=dev))
         age = torch.randint(0, lmax, (b,), generator=g, device=dev, dtype=torch.int32)
@@ -154,9 +167,10 @@ def check_lineage(dev, flush, g, dtype, lmax, ring):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = K1_TOL[dtype]
+    what = (f"lineage_attention L={lmax} {'ring' if ring else 'batch'} {str(dtype)[6:]}"
+            + ("" if lineage == "random" else f" {lineage} lineages"))
     if not err <= tol:
-        raise AssertionError(f"lineage_attention L={lmax} ring={ring} {dtype}: max abs "
-                             f"err {err} > {tol}")
+        raise AssertionError(f"{what}: max abs err {err} > {tol}")
     # library yardstick: SDPA with the boolean lineage mask over the kbeam*L keys
     mask = lineage_masks(anc, pos, age)                                 # [B,1,k,kL]
     qh = q.reshape(b, kbeam, heads, dh).transpose(1, 2)
@@ -164,23 +178,47 @@ def check_lineage(dev, flush, g, dtype, lmax, ring):
     vh = cv.reshape(b, kbeam * lmax, heads, dh).transpose(1, 2)
     kernel = functools.partial(lineage_attention, q, ck, cv, anc, pos, heads, age=age)
     library = functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
-    ms, lib_ms = time_ms(kernel, flush), time_ms(library, flush)
-    dev_ms = time_ms(kernel, flush, device_only=True)
-    dev_lib_ms = time_ms(library, flush, device_only=True)
+    ms, lib_ms = time_in_turns(kernel, library, flush)
+    dev_ms, dev_lib_ms = time_in_turns(kernel, library, flush, device_only=True)
+    wrapper_us = host_us(kernel)
     plain_ms = time_ms(lambda: lineage_attention_plain(q, ck, cv, anc, pos, heads, age=age),
                        flush)
     # bytes this data needs: the K and V rows some query attends, q, out, anc, age
-    rows = int(mask[:, 0].any(dim=1).sum())
+    rows = int(attended_rows(anc, pos, age).sum())
     isz = q.element_size()
     nbytes = 2 * rows * d * isz + 2 * n * d * isz + anc.numel() * 4 + (b * 4 if ring else 0)
     flops = 4 * kbeam * rows * d          # QK and PV over the attended rows
     bms, by = bound_ms(nbytes, flops, dtype)
-    log(f"kernel lineage_attention L={lmax} {'ring' if ring else 'batch'} "
-        f"{str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); "
-        f"device-only ms={dev_ms:.4f} sdpa_ms={dev_lib_ms:.4f}")
+    log(f"kernel {what}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}, "
+        f"{rows} of {n * lmax} rows attended); device-only ms={dev_ms:.4f} "
+        f"sdpa_ms={dev_lib_ms:.4f}; wrapper host {wrapper_us:.1f} us/call")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, device_only_ms=dev_ms, device_only_library_ms=dev_lib_ms)
+                library_ms=lib_ms, device_only_ms=dev_ms, device_only_library_ms=dev_lib_ms,
+                wrapper_host_us=wrapper_us, attended_rows=rows)
+
+
+def lineage_schedule_times(dev, flush, g, reps=10):
+    """K1's device-only time at each cache length of the serving schedule
+    (beam 3, max_len 100, 8 phases), bf16, batch mode at pos = L - 1, random
+    lineages: what the serving profile's per-launch average is read against."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.train.steps import cache_schedule
+
+    b, kbeam, d, heads = 64, 3, 512, 8
+    out = {}
+    for lmax in cache_schedule(DecodeConfig(beam_size=kbeam), 100, serving=True):
+        q = torch.randn(b * kbeam, d, generator=g, device=dev).bfloat16()
+        ck = torch.randn(b * kbeam, lmax, d, generator=g, device=dev).bfloat16()
+        cv = torch.randn(b * kbeam, lmax, d, generator=g, device=dev).bfloat16()
+        anc = torch.randint(0, kbeam, (b, kbeam, lmax), generator=g, device=dev,
+                            dtype=torch.int32)
+        out[lmax] = time_ms(lambda: lineage_attention(q, ck, cv, anc, lmax - 1, heads), flush,
+                            reps=reps, device_only=True)
+    log("K1 bf16 device-only ms by cache length (pos = L - 1, 10 launches each): "
+        + " ".join(f"L{lmax}={ms:.4f}" for lmax, ms in out.items()))
+    return out
 
 
 def time_in_turns(kernel, library, flush, reps=30, device_only=False):
@@ -193,16 +231,23 @@ def time_in_turns(kernel, library, flush, reps=30, device_only=False):
     return statistics.median(samples["kernel"]), statistics.median(samples["library"])
 
 
-def ptxas_report(log_path, kernels=("tile_kernel_bf16", "merge_kernel_warp")):
+def ptxas_report(log_path, kernels):
     """Registers, static shared memory and spill bytes of each instantiation
-    of ``kernels`` from nvcc's -Xptxas -v log."""
+    of ``kernels`` from nvcc's -Xptxas -v log, by name: ``kernel<3>``,
+    ``kernel<bf16, 64, 3>`` (a leading type argument, then the integers)."""
+    types = {"13__nv_bfloat16": "bf16", "f": "float"}
     out, name = {}, None
     with open(log_path) as f:
         for line in f:
             m = re.search(r"(?:entry function '|Function properties for )(\w+)", line)
             if m:
-                k = re.search(r"(%s)ILi(\d+)E" % "|".join(kernels), m.group(1))
-                name = f"{k.group(1)}<{k.group(2)}>" if k else None
+                k = re.search(r"(%s)I(%s)?((?:Li\d+E)+)" % ("|".join(kernels), "|".join(types)),
+                              m.group(1))
+                name = None
+                if k:
+                    targs = [types[k.group(2)]] if k.group(2) else []
+                    targs += re.findall(r"Li(\d+)E", k.group(3))
+                    name = f"{k.group(1)}<{', '.join(targs)}>"
                 continue
             if name is None:
                 continue
@@ -216,6 +261,12 @@ def ptxas_report(log_path, kernels=("tile_kernel_bf16", "merge_kernel_warp")):
                 m = re.search(r"(\d+) bytes smem", line)
                 rec["static_smem"] = int(m.group(1)) if m else 0
     return out
+
+
+def log_ptxas(report):
+    for name, rec in sorted(report.items()):
+        log(f"ptxas {name}: {rec.get('registers')} registers, {rec.get('static_smem')} B "
+            f"static smem, spills {rec.get('spill_stores')} / {rec.get('spill_loads')} B")
 
 
 def check_fused_topk(dev, flush, g, dtype, suppress, n):
@@ -532,6 +583,9 @@ def profile_serving(server, batches, top=15):
         hits = [e for e in kern if frag in e.key]
         out["ported"][frag] = {"count": sum(e.count for e in hits),
                                "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
+        if out["ported"][frag]["count"] <= 0:
+            raise AssertionError(f"profile: no launch of a kernel named *{frag}* in the "
+                                 "served batch")
     log(f"profile (1 batch): wall_ms={out['wall_ms']:.1f} device_busy_ms="
         f"{out['device_busy_ms']:.1f} busy_share={out['busy_share']:.3f} "
         f"kernel_launches={out['kernel_launches']}")
@@ -596,6 +650,7 @@ def main():
     from evoke_tpu_torch.core.config import DecodeConfig
     from evoke_tpu_torch.ops import _build
     from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.lineage_attention import launch_plan as lineage_plan
     from evoke_tpu_torch.ops.lineage_attention import lineage_attention
     from evoke_tpu_torch.serve import ReportServer
     from evoke_tpu_torch.train.steps import make_generate_step
@@ -623,14 +678,29 @@ def main():
         for lmax in (13, 100):
             for ring in (False, True):
                 k1[(dtype, lmax, ring)] = check_lineage(dev, flush, g, dtype, lmax, ring)
+    k1_converged = check_lineage(dev, flush, g, torch.bfloat16, 100, False, "converged")
+    k1_by_length = lineage_schedule_times(dev, flush, g)
+    k1_ptxas = ptxas_report(f"{built['lineage_attention']}.log", ("lineage_kernel",))
+    log_ptxas({name: rec for name, rec in k1_ptxas.items() if ", 64, 3>" in name})
+    serving_regs = k1_ptxas.get("lineage_kernel<bf16, 64, 3>", {}).get("registers")
+    if not serving_regs:
+        raise AssertionError("no lineage_kernel<bf16, 64, 3> entry in the -Xptxas -v log")
+    k1_plan = lineage_plan(3, 100, 64, torch.bfloat16)
+    k1_plan["blocks_per_sm_by_registers"] = 65536 // (serving_regs * k1_plan["threads"])
+    log(f"K1 bf16 plan L=100: {k1_plan['threads']} threads, {k1_plan['lanes_per_row']} lanes "
+        f"a row, {k1_plan['rows_in_flight']} rows in flight a warp, V tile "
+        f"{k1_plan['v_rows']} rows; {k1_plan['smem_bytes']} B dynamic smem (V "
+        f"{k1_plan['v_bytes']}, scores {k1_plan['score_bytes']}, list "
+        f"{k1_plan['list_bytes']}, partials {k1_plan['part_bytes']}); blocks per SM "
+        f"{k1_plan['blocks_per_sm']} by shared memory, "
+        f"{k1_plan['blocks_per_sm_by_registers']} by registers")
     k2 = {}
     for dtype, n in ((torch.bfloat16, 192), (torch.bfloat16, 96), (torch.float32, 192)):
         for suppress in ((), (4,)):
             k2[(dtype, suppress, n)] = check_fused_topk(dev, flush, g, dtype, suppress, n)
-    k2_ptxas = ptxas_report(f"{built['fused_logit_topk']}.log")
-    for name, rec in sorted(k2_ptxas.items()):
-        log(f"ptxas {name}: {rec.get('registers')} registers, {rec.get('static_smem')} B "
-            f"static smem, spills {rec.get('spill_stores')} / {rec.get('spill_loads')} B")
+    k2_ptxas = ptxas_report(f"{built['fused_logit_topk']}.log",
+                            ("tile_kernel_bf16", "merge_kernel_warp"))
+    log_ptxas(k2_ptxas)
     for n in (192, 96):
         plan = k2[(torch.bfloat16, (4,), n)]["plan"]
         log(f"K2 bf16 plan N={n}: {plan['tiles']} tiles on {plan['grid']} blocks of "
@@ -738,6 +808,9 @@ def main():
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "lineage_attention": {f"{str(k[0])[6:]}_L{k[1]}_{'ring' if k[2] else 'batch'}": v
                                   for k, v in k1.items()},
+            "lineage_attention_converged": k1_converged,
+            "lineage_attention_by_length": k1_by_length,
+            "lineage_attention_ptxas": k1_ptxas, "lineage_attention_plan": k1_plan,
             "fused_logit_topk": {f"{str(k[0])[6:]}_N{k[2]}_sup{len(k[1])}": v
                                  for k, v in k2.items()},
             "fused_logit_topk_ptxas": k2_ptxas,

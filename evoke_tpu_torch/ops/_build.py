@@ -23,7 +23,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -43,26 +43,27 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built on the card's machine at first use")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """The hashed .so path for ``csrc/<name>.cu`` (sources + headers + flags)."""
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: Sequence[str] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists. The
-    compiler's ``-Xptxas -v`` report lands beside it as ``<so>.log``."""
-    so = library_path(name)
+    compiler's ``-Xptxas -v`` report lands beside it as ``<so>.log``.
+    ``defines`` are ``-D`` flags of a measuring build (none on the main path)."""
+    so = library_path(name, defines)
     if so.exists():
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {res.returncode}):\n"

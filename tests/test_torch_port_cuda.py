@@ -6,7 +6,7 @@ so it runs on the H100's machine, where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: float32 1e-5 (summation order); bf16 outputs 2e-2 (one bf16 ulp
-near 1). The fused top-k: lse 1e-5 (rtol and atol); float32 values 1e-4
+near 1), rtol and atol both. The fused top-k: lse 1e-5 (rtol and atol); float32 values 1e-4
 with identical indices; bf16 values one ulp (rtol 2^-7: the float32 sums run
 in another order, so a product may round to the neighbouring bf16 value),
 indices equal wherever the values differ by more than that. The fusion
@@ -21,7 +21,8 @@ import torch
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk, fused_logit_topk_plain
 from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
                                                   masked_cross_view_attention_plain)
-from evoke_tpu_torch.ops.lineage_attention import lineage_attention, lineage_attention_plain
+from evoke_tpu_torch.ops.lineage_attention import (launch_plan, lineage_attention,
+                                                   lineage_attention_plain)
 
 
 @pytest.fixture
@@ -44,6 +45,38 @@ def _lineage_inputs(rng, b, kbeam, lmax, d):
             rng.normal(size=(n, lmax, d)).astype(np.float32),
             rng.normal(size=(n, lmax, d)).astype(np.float32),
             rng.integers(0, kbeam, size=(b, kbeam, lmax)).astype(np.int32))
+
+
+def _lineage_case(dev, dtype, b, kbeam, lmax, d, lineage, seed):
+    """q, caches and anc on the card from numpy. ``lineage``: "random";
+    "converged" (all queries share one ancestor row in every slot but the last
+    5, as a real beam does); "dead" (no lineage ever passes through the last
+    beam row, so its history is never read)."""
+    rng = np.random.default_rng(seed)
+    q, ck, cv, anc = _lineage_inputs(rng, b, kbeam, lmax, d)
+    if lineage == "converged":
+        anc[:, :, :max(lmax - 5, 0)] = rng.integers(0, kbeam, size=(b, 1, 1))
+    elif lineage == "dead":
+        anc = rng.integers(0, max(kbeam - 1, 1), size=anc.shape).astype(np.int32)
+    t = lambda x: torch.as_tensor(x).to(dev)
+    return t(q).to(dtype), t(ck).to(dtype), t(cv).to(dtype), t(anc)
+
+
+def _lineage_modes(dev, b, lmax):
+    """(pos, age): batch mode at pos 0, mid and L - 1; ring mode with every
+    age 0, every age L - 1, and a window that wraps past slot 0."""
+    mid = lmax // 2
+    full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
+    wrapped = torch.as_tensor((np.arange(b) % lmax).astype(np.int32)).to(dev)
+    return [(0, None), (mid, None), (lmax - 1, None), (mid, full(0)), (mid, full(lmax - 1)),
+            (min(2, lmax - 1), wrapped)]
+
+
+def _assert_lineage_close(args, pos, heads, age, dtype):
+    got = lineage_attention(*args, pos, heads, age=age)
+    want = lineage_attention_plain(*args, pos, heads, age=age)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def _topk_inputs(dev, dtype, n, v, d=512, seed=0):
@@ -84,6 +117,64 @@ class TestOnCard:
         want = lineage_attention_plain(*args, 9, 8, age=age)
         tol = 1e-5 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kbeam", [1, 2, 3, 4])
+    @pytest.mark.parametrize("dh", [32, 64, 128])
+    @pytest.mark.parametrize("lmax", [1, 13, 100, 257])
+    def test_lineage_kernel_grid(self, cuda_device, dtype, kbeam, dh, lmax):
+        """Every instantiation at four cache lengths, each in six modes (batch
+        at pos 0 / mid / L - 1, ring with age 0 / L - 1 / a wrapped window)
+        and three lineages (random, converged, one beam dead everywhere).
+        L 257 at float32 or dh 128 has a V tile shorter than the row list."""
+        b, heads = 5, 2
+        for lineage in ("random", "converged", "dead"):
+            args = _lineage_case(cuda_device, dtype, b, kbeam, lmax, heads * dh, lineage,
+                                 seed=kbeam * 1000 + dh + lmax)
+            for pos, age in _lineage_modes(cuda_device, b, lmax):
+                _assert_lineage_close(args, pos, heads, age, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b", [1, 257])
+    def test_lineage_kernel_sample_counts(self, cuda_device, dtype, b):
+        args = _lineage_case(cuda_device, dtype, b, 3, 100, 512, "random", seed=b)
+        age = torch.as_tensor((np.arange(b) * 7 % 100).astype(np.int32)).to(cuda_device)
+        n0 = lineage_attention.launches
+        _assert_lineage_close(args, 99, 8, None, dtype)
+        _assert_lineage_close(args, 41, 8, age, dtype)
+        assert lineage_attention.launches == n0 + 2
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kbeam,lmax", [(1, 30000), (4, 3000), (3, 1024)])
+    def test_lineage_kernel_long_caches(self, cuda_device, dtype, kbeam, lmax):
+        """Lengths the first design took: past ~11,000 rows the plan has no
+        row list (rows walked in place); at 3 x 1024 the V tile is shorter
+        than the list."""
+        p = launch_plan(kbeam, lmax, 32, dtype)
+        assert p["compact"] == (lmax == 1024) and p["v_rows"] < kbeam * lmax
+        for lineage in ("random", "converged"):
+            args = _lineage_case(cuda_device, dtype, 2, kbeam, lmax, 64, lineage, seed=lmax)
+            age = torch.as_tensor(np.array([lmax - 1, 17], np.int32)).to(cuda_device)
+            _assert_lineage_close(args, lmax - 1, 2, None, dtype)
+            _assert_lineage_close(args, 5, 2, age, dtype)
+
+    def test_lineage_kernel_refuses_what_it_cannot_read(self, cuda_device):
+        q, ck, cv, anc = _lineage_case(cuda_device, torch.bfloat16, 4, 3, 13, 512, "random", 0)
+        wide = torch.zeros(12, 13, 1024, dtype=torch.bfloat16, device=cuda_device)
+        n0 = lineage_attention.launches
+        with pytest.raises(ValueError, match="contiguous"):
+            lineage_attention(q, wide[:, :, :512], cv, anc, 9, 8)
+        with pytest.raises(ValueError, match="contiguous"):
+            lineage_attention(torch.zeros(12, 1024, dtype=torch.bfloat16,
+                                          device=cuda_device)[:, ::2], ck, cv, anc, 9, 8)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            lineage_attention(torch.zeros(12 * 512 + 1, dtype=torch.bfloat16,
+                                          device=cuda_device)[1:].view(12, 512), ck, cv, anc, 9, 8)
+        with pytest.raises(ValueError, match="outside the cache's slots"):
+            lineage_attention(q, ck, cv, anc, 13, 8)
+        with pytest.raises(TypeError):
+            lineage_attention(q, ck, cv, anc.long(), 9, 8)
+        assert lineage_attention.launches == n0
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("n", [6, 96, 192, 257])
