@@ -33,15 +33,30 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    8 heads, dk 2048, bf16 and float32, on strided views as the module passes
    them, with anchors of 0 (self slot), 1 and 3 partners;
 3. a correctness check on a small input: the full-width flagship at float32
-   decodes two studies through the serving path (lineage kernel + fused tail)
-   and through the eval path (reorder caches, plain vocab tail); the best
-   beams must agree (float32: the attended sets are identical);
+   decodes two studies three ways: through the serving path (lineage kernel +
+   fused tail) with the decode steps replayed from CUDA graphs, through the
+   same path run eagerly (``graphs=False``), and through the eval path
+   (reorder caches, plain vocab tail). Captured and eager must give the same
+   tokens and the same scores, bit for bit (same kernels, same order); the
+   best beams of the serving and eval paths must agree (float32: the attended
+   sets are identical). Then an early-stop check: a full-width one-layer
+   float32 R2Gen decoder (64 samples x beam 3, serving schedule, 'wu_0.8')
+   whose EOS logit bias is raised at step 15, so every beam finishes in the
+   second cache phase; captured and eager must agree in tokens and scores,
+   and the steps queued (one phase's end, below max_len) are printed beside
+   the steps a read per step would have run, with the cost of one flag read;
 4. the main path: the full-width flagship (ResNet-101 @ 224, wide-qkv
    grouped fusion, 768x6 text encoder + BertCrossLayer, R2Gen decoder d 512,
    30001 logits, bf16) with seeded random weights serves 3 batches of 64
    studies (64 anchors + 64 aux views, with indication) through ReportServer
-   at beam 3; every launch counter is set to 0 just before and read just
-   after, and each kernel must have been launched (K1 three times per step);
+   at beam 3 and depth 2, four times in one process: eager, captured,
+   captured, eager. Each run prints reports/s, p50 batch latency, peak GiB
+   and its launch counts; wall per decode step (the loop alone, between two
+   synchronisations), capture seconds and the loop's device memory are
+   printed for each mode. Every launch counter is set to 0 just before each
+   run and read just after, and each kernel must have been launched (K1
+   three times per step), replayed graphs included; ``--profile`` serves one
+   more captured batch under torch.profiler;
 5. the fusion module at full width (d_vf 2048, wide qkv, 8 heads, T 50, the
    flagship layout): BatchedCrossViewAttention(use_pallas=True) against the
    dense route and the grouped route (max_partners=3) with one weight set, at
@@ -49,8 +64,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
 6. the serve CLI in-process at full width and every CLI default but bf16
    (ResNet-101 @ 224, dense fusion, 768x6 encoder, R2Gen 512x3, beam 3, batch
    32 + 32 aux, uint8 images) over a synthetic dataset written to a temporary
-   directory with a 30000-word tokenizer; one non-empty report per test
-   study, K1:K2 launches 3:1;
+   directory with a 30000-word tokenizer, decode steps captured; one
+   non-empty report per test study, K1:K2 launches 3:1, reports/s with and
+   without the capture time;
 7. a JSON line of every ported kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -546,13 +562,21 @@ def serve_cli(seed):
         raise AssertionError(f"cli launch counts: lineage {n_k1}, fused {n_k2} "
                              "(want 3:1, > 0)")
     p50 = [s["batch_latency_p50_s"] for s in stats]
+    capture_s = sum(s["capture_s"] for s in stats)
+    if capture_s <= 0:
+        raise AssertionError("cli serve: the decode steps were not captured")
+    served_s = sum(s["wall_s"] for s in stats) - capture_s
     out = dict(reports=summary["reports"], reports_per_s=summary["reports_per_s"],
+               capture_s=capture_s, reports_per_s_without_capture=summary["reports"] / served_s,
                serve_wall_s=summary["wall_s"], batch_latency_p50_s=p50,
                batches=[s["batches"] for s in stats], peak_mem_gib=peak_gib,
                cli_wall_s=wall, launches_lineage=n_k1, launches_fused=n_k2,
                launches_fusion_attention=n_k3)
     log(f"cli serve: {summary['reports']} reports, reports_per_s="
-        f"{summary['reports_per_s']} (serve wall {summary['wall_s']} s; with/without "
+        f"{summary['reports_per_s']} with the capture of the decode steps "
+        f"({capture_s:.2f}s for {len(stats)} loops), "
+        f"{out['reports_per_s_without_capture']:.3f} without (serve wall "
+        f"{summary['wall_s']} s; with/without "
         f"indication batch_latency_p50_s={[round(x, 4) for x in p50]}), cli wall "
         f"{wall:.1f}s, peak_mem_gib={peak_gib:.2f}, launches lineage={n_k1} fused={n_k2} "
         f"fusion_attention={n_k3}")
@@ -594,6 +618,195 @@ def profile_serving(server, batches, top=15):
     for frag, t in out["ported"].items():
         log(f"  ported {frag}: {t['device_ms']:.3f} ms x{t['count']}")
     return out
+
+
+def only_loop(gen):
+    """The one BeamLoop a generate step has built (one batch shape so far)."""
+    (loop, _), = gen.loops.values()
+    return loop
+
+
+def decode_step_wall_ms(gen, dev_batch, reps=3):
+    """Wall milliseconds per decode step: ``BeamLoop.run`` alone on the host
+    clock between two device synchronisations, the median of ``reps``
+    batches. Returns (ms per step, steps per batch)."""
+    from evoke_tpu_torch.decode.beam import BeamLoop
+
+    run, seen = BeamLoop.run, []
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self)
+        torch.cuda.synchronize()
+        seen.append(((time.perf_counter() - t0) * 1e3 / self.steps_run, self.steps_run))
+        return out
+
+    BeamLoop.run = timed
+    try:
+        for _ in range(reps):
+            gen(dev_batch)
+    finally:
+        BeamLoop.run = run
+    return statistics.median(ms for ms, _ in seen), seen[0][1]
+
+
+def check_early_stop(dev, seed):
+    """Early stop on the card under a non-identity length penalty: a
+    full-width one-layer float32 R2Gen decoder, 64 samples x beam 3, the
+    serving policy (ancestor caches, 8 cache phases, fused tail), 'wu_0.8'.
+    The step sets the EOS logit bias to -50 at step 0 and to +50 at step 15,
+    so every beam finishes at step 15, in the second phase [13, 25). The
+    captured loop and the eager loop must return the same tokens and scores
+    and leave at the phase's end."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.decode.beam import BeamLoop
+    from evoke_tpu_torch.models.rm_decoder import RMDecoder
+    from evoke_tpu_torch.params import init_params_
+    from evoke_tpu_torch.train.steps import cache_schedule
+
+    vocab, batch, beam, max_len, switch_at = 30000, 64, 3, 100, 15
+    schedule = cache_schedule(DecodeConfig(beam_size=beam), max_len, serving=True)
+    with torch.device(dev):
+        dec = init_params_(RMDecoder(vocab_size=vocab, num_layers=1, max_seq_len=max_len,
+                                     dtype=torch.float32), seed).eval()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    att = torch.randn(batch, 49, 2048, generator=g, device=dev)
+    mask = torch.ones(batch, 49, dtype=torch.int32, device=dev)
+    bos, eos = vocab - 2, vocab - 1      # the tokenizer's last two ids; vocab + 1 logits
+    with torch.inference_mode():
+        lo, hi = dec.logit.bias.clone(), dec.logit.bias.clone()
+        lo[eos] -= 50.0
+        hi[eos] += 50.0
+        state0 = dec.init_decode_state(dec.encode(att, mask), batch * beam, schedule[0])
+
+    def step(tok, t, st):
+        if t in (0, switch_at):
+            dec.logit.bias.copy_(hi if t else lo)
+        return dec.decode_step(tok, t, st, mask, return_topk=beam, topk_suppress=(4,))
+
+    out = {}
+    for name, graphs in (("captured", True), ("eager", False)):
+        loop = BeamLoop(step, state0, batch, bos_id=bos, eos_id=eos, pad_id=0,
+                        vocab_size=vocab + 1, beam_size=beam, max_len=max_len,
+                        length_penalty="wu_0.8", raw_logits=True, fused_topk=True,
+                        ancestor_kv=True, cache_schedule=schedule, early_stop=True,
+                        graphs=graphs)
+        loop.load(state0)
+        res = loop.run()
+        out[name] = dict(res=res, steps=loop.steps_run, live=int(loop.live_steps),
+                         reads=loop.flag_reads, capture_s=loop.capture_s,
+                         read_us=host_us(loop.all_finished, calls=50))
+        del loop
+    cap, eag = out["captured"], out["eager"]
+    same_tok = torch.equal(cap["res"].seqs, eag["res"].seqs)
+    same_score = torch.equal(cap["res"].scores, eag["res"].scores)
+    ended = bool((cap["res"].seqs == eos).any(-1).all())
+    log(f"early stop (float32, 1 layer, 64 x beam 3, wu_0.8, EOS raised at step "
+        f"{switch_at}, schedule {schedule}): captured queued {cap['steps']} steps with "
+        f"{cap['reads']} flag reads, eager {eag['steps']} with {eag['reads']}; a read per "
+        f"step would have run {cap['live']}; tokens equal {same_tok}, scores equal "
+        f"{same_score}; one flag read on an idle device {cap['read_us']:.1f} us "
+        f"(captured) / {eag['read_us']:.1f} us (eager); capture {cap['capture_s']:.2f}s")
+    phase_len = max(b - a for a, b in zip((0,) + schedule, schedule))
+    if not (same_tok and same_score and ended):
+        raise AssertionError("early stop: captured and eager loops disagree, or a "
+                             "recorded beam never ended")
+    if not (cap["live"] == eag["live"] == switch_at + 1 and cap["steps"] < max_len
+            and cap["steps"] <= eag["steps"] + phase_len and cap["steps"] == schedule[1]):
+        raise AssertionError(f"early stop: steps {cap['steps']} / {eag['steps']}, live "
+                             f"{cap['live']} / {eag['live']}")
+    torch.cuda.empty_cache()
+    return {k: {kk: vv for kk, vv in v.items() if kk != "res"} for k, v in out.items()}
+
+
+def main_path(model, tok, cfg, batches, dev, with_profile):
+    """Serve ``batches`` through ReportServer at depth 2 (the server's default:
+    a captured loop reads nothing after its last cache phase, so a held
+    batch's tail overlaps the next batch's encoder) four times in the order
+    eager, captured, captured, eager. One server is alive at a time, so each
+    run's peak memory is its own mode's; a server is warmed with one batch
+    (cuDNN plans; the capture). After each run the decode loop alone is timed.
+    Returns (runs, set-ups, wall ms per step by mode, the profile or None)."""
+    import gc
+
+    from evoke_tpu_torch.data.batching import to_device
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.serve import ReportServer
+
+    dev_batch, _ = to_device(batches[0], dev)
+    runs, set_up, step_wall, profile = [], [], {}, None
+    server = loop = server_mode = None
+    for i, mode in enumerate(("eager", "captured", "captured", "eager")):
+        if mode != server_mode:
+            server = loop = None               # frees the other mode's loop: buffers, graphs, pool
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+                      torch.cuda.mem_get_info()[0])
+            t0 = time.perf_counter()
+            server = ReportServer(model, tok, cfg, max_seq_len=100, depth=2, device=dev,
+                                  graphs=None if mode == "captured" else False)
+            server.serve(batches[:1], with_indication=True)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            loop = only_loop(server._gen[True])
+            if loop.graphs != (mode == "captured"):
+                raise AssertionError(f"main path: the {mode} server's loop has graphs="
+                                     f"{loop.graphs}")
+            gib = 2 ** 30
+            rec = dict(mode=mode, warm_up_s=warm_s, capture_s=server.stats["capture_s"],
+                       loop_static_gib=loop.static_bytes / gib,
+                       allocated_kept_gib=(torch.cuda.memory_allocated() - before[0]) / gib,
+                       reserved_kept_gib=(torch.cuda.memory_reserved() - before[1]) / gib,
+                       device_kept_gib=(before[2] - torch.cuda.mem_get_info()[0]) / gib)
+            set_up.append(rec)
+            log(f"main path {mode} server: warm-up batch {warm_s:.2f}s of which capture "
+                f"{rec['capture_s']:.2f}s ({len(loop._graphs)} graphs); kept after it: loop "
+                f"buffers {rec['loop_static_gib']:.3f} GiB, tensors "
+                f"{rec['allocated_kept_gib']:.3f} GiB, the allocator's segments (tensors, "
+                f"graph pool) {rec['reserved_kept_gib']:.3f} GiB, device memory by the "
+                f"cudaMemGetInfo's count {rec['device_kept_gib']:.3f} GiB")
+            server_mode = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lineage_attention.launches = 0
+        fused_logit_topk.launches = 0
+        records = server.serve(batches, with_indication=True)
+        torch.cuda.synchronize()
+        n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
+        run = dict(server.stats, mode=mode, launches_lineage=n_k1, launches_fused=n_k2,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   words=sum(len(r["report"].split()) for r in records))
+        if len(records) != 192 or len({r["id"] for r in records}) != 192:
+            raise AssertionError(f"{mode}: expected 192 records, got {len(records)}")
+        if not all(r["report"].strip() for r in records):
+            raise AssertionError(f"{mode}: empty report")
+        if n_k2 <= 0 or n_k1 != 3 * n_k2:
+            raise AssertionError(f"{mode} launch counts: lineage {n_k1}, fused {n_k2} "
+                                 "(want 3:1, > 0)")
+        if run["capture_s"] != 0.0:
+            raise AssertionError(f"{mode}: a warmed server captured again")
+        if runs and run["words"] != runs[0]["words"]:
+            raise AssertionError(f"{mode}: {run['words']} words, the first run "
+                                 f"{runs[0]['words']}")
+        ms, steps = decode_step_wall_ms(server._gen[True], dev_batch)
+        run["decode_step_wall_ms"] = ms
+        step_wall.setdefault(mode, []).append(ms)
+        log(f"main path {mode}: {len(records)} reports ({run['words']} words, non-PAD), "
+            f"reports_per_s={run['reports_per_s']:.2f} batch_latency_p50_s="
+            f"{run['batch_latency_p50_s']:.4f} wall_s={run['wall_s']:.3f} peak_mem_gib="
+            f"{run['peak_mem_gib']:.2f} decode_steps={n_k2} launches lineage={n_k1} "
+            f"fused={n_k2}; the decode loop alone {ms:.3f} ms of wall per step over "
+            f"{steps} steps (median of 3 batches)")
+        runs.append(run)
+        if with_profile and i == 2:
+            profile = profile_serving(server, batches[:1])
+    return runs, set_up, step_wall, profile
 
 
 def synthetic_tokenizer(vocab_size=30000):
@@ -649,10 +862,7 @@ def main():
 
     from evoke_tpu_torch.core.config import DecodeConfig
     from evoke_tpu_torch.ops import _build
-    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
     from evoke_tpu_torch.ops.lineage_attention import launch_plan as lineage_plan
-    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
-    from evoke_tpu_torch.serve import ReportServer
     from evoke_tpu_torch.train.steps import make_generate_step
 
     t_start = time.perf_counter()
@@ -725,21 +935,36 @@ def main():
     model32 = flagship(vocab, torch.float32, dev, args.seed)
     small = {k: torch.as_tensor(v).to(dev) for k, v in
              example_batch(rng, 2, 2, 224, 100, vocab).items()}
-    serve_gen = make_generate_step(model32, tok, cfg, 100, with_indication=True,
-                                   serving=True, device=dev)
+    serve_gen, eager_gen = (
+        make_generate_step(model32, tok, cfg, 100, with_indication=True, serving=True,
+                           device=dev, graphs=graphs) for graphs in (None, False))
     eval_gen = make_generate_step(model32, tok, cfg, 100, with_indication=True,
                                   serving=False, device=dev)
     assert serve_gen.ancestor_kv and serve_gen.fused_topk
     assert not eval_gen.ancestor_kv and not eval_gen.fused_topk
     s_kern = serve_gen(small).cpu().numpy()
+    s_eager = eager_gen(small).cpu().numpy()
     s_plain = eval_gen(small).cpu().numpy()
+    cap_loop, eag_loop = only_loop(serve_gen), only_loop(eager_gen)
+    if not (cap_loop.graphs and only_loop(eval_gen).graphs and not eag_loop.graphs):
+        raise AssertionError("phase 3: the default generate step did not capture its loop, "
+                             "or graphs=False did")
+    same_tok = bool((s_kern == s_eager).all())
+    same_score = torch.equal(cap_loop.done_score, eag_loop.done_score)
     agree = float((s_kern == s_plain).mean())
-    log(f"reference check (float32, 2 studies, kernels vs reorder + plain tail): "
+    log(f"reference check (float32, 2 studies): captured vs eager serving path tokens "
+        f"equal {same_tok}, scores equal {same_score} (capture {cap_loop.capture_s:.2f}s, "
+        f"eval path {only_loop(eval_gen).capture_s:.2f}s); kernels vs reorder + plain tail: "
         f"token agreement {agree:.4f}, {time.perf_counter() - t0:.1f}s")
+    if not (same_tok and same_score):
+        raise AssertionError("the captured loop disagrees with the eager loop at float32")
     if agree < 0.9:
         raise AssertionError(f"serving path disagrees with the eval path: {agree}")
-    del model32, serve_gen, eval_gen
+    del model32, serve_gen, eager_gen, eval_gen, cap_loop, eag_loop
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    early = check_early_stop(dev, args.seed)
+    log(f"early-stop check {time.perf_counter() - t0:.1f}s")
 
     # ---- phase 4: the main path ----
     t0 = time.perf_counter()
@@ -749,34 +974,11 @@ def main():
         bt = example_batch(rng, 64, 64, 224, 100, vocab)
         bt["_image_ids"] = [f"b{i}_s{j}" for j in range(64)]
         batches.append(bt)
-    # depth 0: the beam loop already syncs once per step (early stop), so
-    # holding finished batches back adds latency and no throughput
-    server = ReportServer(model, tok, cfg, max_seq_len=100, depth=0, device=dev)
-    server.serve(batches[:1], with_indication=True)          # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
-    log(f"main path set-up (model, data, warm-up batch) {time.perf_counter() - t0:.1f}s")
-    torch.cuda.reset_peak_memory_stats()
-    lineage_attention.launches = 0
-    fused_logit_topk.launches = 0
-    records = server.serve(batches, with_indication=True)
-    torch.cuda.synchronize()
-    n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    st = server.stats
-    if len(records) != 192 or len({r["id"] for r in records}) != 192:
-        raise AssertionError(f"expected 192 records, got {len(records)}")
-    if not all(r["report"].strip() for r in records):
-        raise AssertionError("empty report")
-    words = sum(len(r["report"].split()) for r in records)
-    if n_k2 <= 0 or n_k1 != 3 * n_k2:
-        raise AssertionError(f"launch counts: lineage {n_k1}, fused {n_k2} (want 3:1, > 0)")
-    log(f"main path: {len(records)} reports ({words} words, non-PAD), "
-        f"reports_per_s={st['reports_per_s']:.2f} batch_latency_p50_s="
-        f"{st['batch_latency_p50_s']:.4f} wall_s={st['wall_s']:.3f} peak_mem_gib="
-        f"{peak_gib:.2f} decode_steps={n_k2} launches lineage={n_k1} fused={n_k2}")
-
-    profile = profile_serving(server, batches[:1]) if args.profile else None
-    del model, server, batches
+    runs, set_up, step_wall, profile = main_path(model, tok, cfg, batches, dev, args.profile)
+    log(f"main path phase {time.perf_counter() - t0:.1f}s")
+    st = next(r for r in runs if r["mode"] == "captured")
+    n_k1, n_k2 = st["launches_lineage"], st["launches_fused"]
+    del model, batches
     torch.cuda.empty_cache()
 
     # ---- phase 5: the fusion module through K3 ----
@@ -817,8 +1019,9 @@ def main():
             "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
             "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
             "cli_serve": cli_res,
-            "main_path": dict(st, peak_mem_gib=peak_gib, launches_lineage=n_k1,
-                              launches_fused=n_k2, reference_token_agreement=agree),
+            "main_path": dict(st, reference_token_agreement=agree),
+            "main_path_runs": runs, "main_path_set_up": set_up,
+            "decode_step_wall_ms": step_wall, "early_stop": early,
             "kernels": kernels["kernels"], "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }

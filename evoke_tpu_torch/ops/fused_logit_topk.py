@@ -144,7 +144,11 @@ def _bf16_plan(n: int, d: int, v: int, k: int, index: int) -> Tuple[int, ...]:
 def fused_logit_topk(h, w, b, k: int, suppress_ids: Sequence[int] = ()):
     """h [N, D], w [V, D], b [V] (one dtype) -> (vals [N, k] f32, idx [N, k]
     i32, lse [N] f32). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (counted in ``fused_logit_topk.launches``) or raises."""
+    launches the kernel (counted in ``fused_logit_topk.launches``) or raises.
+    Under CUDA graph capture this call runs once, at capture: outputs and
+    workspace come from the graph's memory pool, h's and W's tensor maps hold
+    their addresses (W must not move afterwards), and whoever replays the
+    graph counts its launches (``decode/beam.LaunchLedger``)."""
     suppress_ids = tuple(int(s) for s in suppress_ids)
     if h.device.type == "cpu":
         return fused_logit_topk_plain(h, w, b, k, suppress_ids)

@@ -205,7 +205,10 @@ def lineage_attention(q, cache_k, cache_v, anc, pos: int, num_heads: int,
     int32, age optional [B] int32 -> context [N, D] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``lineage_attention.launches``) or raises."""
+    (counted in ``lineage_attention.launches``) or raises. Under CUDA graph
+    capture the checks, the plan look-up and this call run once, at capture:
+    ``pos`` and every pointer are fixed in the graph, and whoever replays it
+    counts its launches (``decode/beam.LaunchLedger``)."""
     if q.device.type == "cpu":
         return lineage_attention_plain(q, cache_k, cache_v, anc, pos, num_heads, age)
     if q.device.type != "cuda":

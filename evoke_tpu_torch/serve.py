@@ -2,7 +2,10 @@
 
 - ``generate_stream``: run (device_batch, host_extras) pairs through a
   generate step with up to ``depth`` results held back, syncing (copying to
-  the host) on dequeue, yielding in submission order.
+  the host) on dequeue, yielding in submission order. On the card the step
+  returns while the device still runs its batch's last cache phase
+  (``decode/beam.BeamLoop`` reads nothing after it), so the next batch's
+  encoder is queued behind it.
 - ``ReportServer``: model + tokenizer -> ``serve(loader)`` returning one
   record per study plus throughput and batch-latency stats.
 """
@@ -27,7 +30,13 @@ EMPTY_REPORT = "there is no evidence of pulmonary."
 
 def generate_stream(gen, batches: Iterable[Tuple[Dict, Dict]],
                     depth: int = 2) -> Iterator[Tuple[Dict, np.ndarray]]:
-    """Yield ``(host_extras, seqs)`` in order, up to ``depth`` results in flight."""
+    """Yield ``(host_extras, seqs)`` in order, up to ``depth`` results in flight.
+
+    ``gen`` reuses its beam loop's buffers for every batch. What is held back
+    here is each batch's ``seqs``, a tensor of its own that ``gen`` makes on
+    the current stream before it returns; the next batch's copies into those
+    buffers are queued on the same stream after it, so stream order alone
+    keeps a held result from being overwritten."""
     q: deque = deque()
     for dev, host in batches:
         q.append((host, gen(dev)))
@@ -47,7 +56,10 @@ class ReportServer:
     plus host-side ``_image_ids`` and optional ``_gts``."""
 
     def __init__(self, model, tokenizer, decode_cfg, max_seq_len: int = 100,
-                 depth: int = 2, device="cuda"):
+                 depth: int = 2, device="cuda", graphs=None):
+        """``graphs``: None captures the decode steps into CUDA graphs on a CUDA
+        device and runs them eagerly on the CPU; False runs them eagerly on
+        either (for an A/B on the card)."""
         self.tokenizer = tokenizer
         self.depth = depth
         self.device = resolve_device(device)
@@ -57,7 +69,7 @@ class ReportServer:
         self._gen = {
             flag: make_generate_step(model, tokenizer, decode_cfg, max_seq_len,
                                      with_indication=flag, serving=True,
-                                     device=self.device)
+                                     device=self.device, graphs=graphs)
             for flag in (True, False)}
         self.stats: Dict[str, float] = {}
 
@@ -65,8 +77,11 @@ class ReportServer:
               prefetch: int = 2) -> List[Dict[str, Any]]:
         """Generate a report for every valid study in ``loader``; returns
         records ``{"id", "report", "gt"?}`` in loader order and fills
-        ``self.stats`` (wall-clock throughput, median batch latency)."""
+        ``self.stats`` (wall-clock throughput, median batch latency, and
+        ``capture_s``: the seconds of ``wall_s`` this call spent capturing the
+        decode steps of batch shapes it met for the first time)."""
         gen = self._gen[with_indication]
+        captured_before = sum(loop.capture_s for loop, _ in gen.loops.values())
         records: List[Dict[str, Any]] = []
 
         def checked(batches):
@@ -111,5 +126,6 @@ class ReportServer:
             "wall_s": wall,
             "reports_per_s": len(records) / wall if wall > 0 else float("nan"),
             "batch_latency_p50_s": statistics.median(latencies) if latencies else float("nan"),
+            "capture_s": sum(loop.capture_s for loop, _ in gen.loops.values()) - captured_before,
         }
         return records

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from evoke_tpu_torch.core.device import resolve_device
-from evoke_tpu_torch.decode.beam import beam_search
+from evoke_tpu_torch.decode.beam import BeamLoop
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -62,12 +62,20 @@ def cache_schedule(decode_cfg, max_seq_len: int, serving: bool):
 
 def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
                        with_indication: bool = False, serving: bool = False,
-                       all_samples: bool = False, device="cuda"):
+                       all_samples: bool = False, device="cuda", graphs=None):
     """-> ``generate_step(batch) -> seqs [n_anchor, L]`` ([n_anchor, beam, L]
     with ``all_samples``). ``batch`` holds tensors on ``device``: images
     [B, H, W, 3] (uint8 or normalised float), ids [n_anchor, T] (its first
     dim is the anchor count), pids [B], valid [B], and with_indication
-    inc_ids / inc_mask."""
+    inc_ids / inc_mask.
+
+    The step keeps one ``BeamLoop`` per batch shape (``generate_step.loops``):
+    on a CUDA device the loop's steps are captured into CUDA graphs at the
+    shape's first batch and replayed for every later one, so the step returns
+    while the card still runs the batch's last cache phase; ``seqs`` is a new
+    tensor, queued on the current stream before any later batch's copies into
+    the loop's buffers. ``graphs=False`` runs the same steps eagerly (the
+    CPU's path; on the card for an A/B)."""
     device = resolve_device(device)
     beam = int(decode_cfg.beam_size)
     groups = max(int(decode_cfg.group_size), 1)
@@ -92,6 +100,30 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     ancestor_kv = resolve_beam_kv(decode_cfg, serving) == "ancestor"
     fused = use_fused_topk(model, decode_cfg, serving)
 
+    decoding_constraint = bool(decode_cfg.decoding_constraint)
+    loops = {}   # batch shape -> (BeamLoop, its attention-mask buffer)
+
+    def loop_for(state0, att_mask, b):
+        """The beam loop of this batch shape, built (and on the card captured)
+        at the shape's first batch. Its step reads the attention mask from a
+        buffer of its own, which every later batch's mask is copied into."""
+        key = (b, beam, tuple(att_mask.shape), state0["cross_k"][0].dtype, fused,
+               ancestor_kv, schedule)
+        if key not in loops:
+            mask = att_mask.clone()
+            step_kw = (dict(return_topk=beam, topk_suppress=suppress) if fused
+                       else dict(return_logits=True))
+            contract = (dict(fused_topk=True) if fused else
+                        dict(suppress_ids=suppress, decoding_constraint=decoding_constraint))
+
+            def step(tok, pos, dstate):
+                return model.decode_step(tok, pos, dstate, mask, **step_kw)
+
+            loops[key] = (BeamLoop(step, state0, b, cache_schedule=schedule, raw_logits=True,
+                                   ancestor_kv=ancestor_kv, graphs=graphs, **contract,
+                                   **common), mask)
+        return loops[key]
+
     @torch.inference_mode()
     def generate_step(batch):
         batch = maybe_normalize_images(batch)
@@ -100,23 +132,13 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
         enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
                                                 batch["valid"], b, *inc)
         state0 = model.init_decode_state(enc, b * beam, schedule[0])
-        if fused:
-            def step(tok, pos, dstate):
-                return model.decode_step(tok, pos, dstate, att_mask, return_topk=beam,
-                                         topk_suppress=suppress)
-
-            res = beam_search(step, state0, b, cache_schedule=schedule, raw_logits=True,
-                              fused_topk=True, ancestor_kv=ancestor_kv, **common)
-        else:
-            def step(tok, pos, dstate):
-                return model.decode_step(tok, pos, dstate, att_mask, return_logits=True)
-
-            res = beam_search(step, state0, b, suppress_ids=suppress,
-                              decoding_constraint=bool(decode_cfg.decoding_constraint),
-                              cache_schedule=schedule, raw_logits=True,
-                              ancestor_kv=ancestor_kv, **common)
+        loop, mask = loop_for(state0, att_mask, b)
+        mask.copy_(att_mask)
+        loop.load(state0)
+        res = loop.run()
         return res.seqs if all_samples else res.seqs[:, 0, :]
 
+    generate_step.loops = loops
     generate_step.ancestor_kv = ancestor_kv
     generate_step.fused_topk = fused
     generate_step.schedule = schedule

@@ -264,3 +264,122 @@ class TestOnCard:
         want = masked_cross_view_attention_plain(q, k, v, attend, t)
         tol = 2e-5 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---- the beam loop replayed from CUDA graphs against the same loop run eagerly ----
+
+_LOOP_VOCAB, _LOOP_BATCH, _LOOP_BEAM = 30000, 64, 3
+_LOOP_SCHEDULE = (8, 15, 30)
+_LOOP_SWITCH = 9          # the EOS bias rises here: every beam finishes in phase [8, 15)
+_LOOP_CONTRACTS = {
+    "logp": dict(),
+    "raw": dict(raw_logits=True, suppress_ids=(4,), decoding_constraint=True),
+    "fused": dict(raw_logits=True, fused_topk=True, ancestor_kv=True),
+}
+
+
+def _loop_case(dev, dtype, contract, early_stop, seed=0):
+    """(step, state0, keywords) of a BeamLoop over the R2Gen decoder at full
+    width (d 512, 8 heads, 30001 logits, 64 samples x beam 3) and its full
+    depth of 3 layers, seeded weights and inputs. With ``early_stop`` the step
+    sets the EOS logit bias to -50 at step 0 and +50 at step ``_LOOP_SWITCH``."""
+    from evoke_tpu_torch.models.rm_decoder import RMDecoder
+    from evoke_tpu_torch.params import init_params_
+
+    with torch.device(dev):
+        dec = init_params_(RMDecoder(vocab_size=_LOOP_VOCAB, num_layers=3,
+                                     max_seq_len=_LOOP_SCHEDULE[-1], dtype=dtype), 0).eval()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    att = torch.randn(_LOOP_BATCH, 49, 2048, generator=g, device=dev).to(dtype)
+    mask = torch.ones(_LOOP_BATCH, 49, dtype=torch.int32, device=dev)
+    eos = _LOOP_VOCAB - 1
+    with torch.inference_mode():
+        lo, hi = dec.logit.bias.clone(), dec.logit.bias.clone()
+        lo[eos] -= 50.0
+        hi[eos] += 50.0
+        state0 = dec.init_decode_state(dec.encode(att, mask), _LOOP_BATCH * _LOOP_BEAM,
+                                       _LOOP_SCHEDULE[0])
+    kw = (dict(return_topk=_LOOP_BEAM, topk_suppress=(4,)) if contract == "fused"
+          else dict(return_logits=contract == "raw"))
+
+    def step(tok, t, st):
+        if early_stop and t in (0, _LOOP_SWITCH):
+            dec.logit.bias.copy_(hi if t else lo)
+        return dec.decode_step(tok, t, st, mask, **kw)
+
+    loop_kw = dict(bos_id=_LOOP_VOCAB - 2, eos_id=eos, pad_id=0, vocab_size=_LOOP_VOCAB + 1,
+                   beam_size=_LOOP_BEAM, max_len=_LOOP_SCHEDULE[-1], length_penalty="wu_0.8",
+                   cache_schedule=_LOOP_SCHEDULE, early_stop=early_stop,
+                   **_LOOP_CONTRACTS[contract])
+    return dec, step, state0, loop_kw
+
+
+def _run_loop(step, state0, loop_kw, graphs):
+    from evoke_tpu_torch.decode.beam import BeamLoop
+
+    loop = BeamLoop(step, state0, _LOOP_BATCH, graphs=graphs, **loop_kw)
+    loop.load(state0)
+    res = loop.run()
+    torch.cuda.synchronize()
+    return loop, res
+
+
+class TestBeamLoopGraphs:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("contract", sorted(_LOOP_CONTRACTS))
+    @pytest.mark.parametrize("early_stop", [False, True])
+    def test_captured_equals_eager(self, cuda_device, dtype, contract, early_stop):
+        """Same kernels in the same order: tokens, scores and alive log-probs
+        bit-equal; with early stop both leave at the end of the second phase."""
+        _, step, state0, kw = _loop_case(cuda_device, dtype, contract, early_stop)
+        cap, got = _run_loop(step, state0, kw, graphs=True)
+        eag, want = _run_loop(step, state0, kw, graphs=False)
+        assert cap.graphs and not eag.graphs and len(cap._graphs) == _LOOP_SCHEDULE[-1]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        steps = _LOOP_SCHEDULE[1] if early_stop else _LOOP_SCHEDULE[-1]
+        assert cap.steps_run == eag.steps_run == steps
+        assert cap.flag_reads == eag.flag_reads == (2 if early_stop else 0)
+        live = _LOOP_SWITCH + 1 if early_stop else _LOOP_SCHEDULE[-1]
+        assert int(cap.live_steps) == int(eag.live_steps) == live
+        if early_stop:
+            assert (got.seqs == kw["eos_id"]).any(-1).all()
+        assert got.seqs.unique().numel() > 3
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_second_batch_through_one_loop_equals_a_fresh_loop(self, cuda_device, dtype):
+        dec, step, first, kw = _loop_case(cuda_device, dtype, "fused", False, seed=0)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(1)
+        att = torch.randn(_LOOP_BATCH, 49, 2048, generator=g, device=cuda_device).to(dtype)
+        mask = torch.ones(_LOOP_BATCH, 49, dtype=torch.int32, device=cuda_device)
+        with torch.inference_mode():
+            second = dec.init_decode_state(dec.encode(att, mask), _LOOP_BATCH * _LOOP_BEAM,
+                                           _LOOP_SCHEDULE[0])
+        loop, res1 = _run_loop(step, first, kw, graphs=True)
+        loop.load(second)
+        res2 = loop.run()
+        _, fresh = _run_loop(step, second, kw, graphs=True)
+        for a, b in zip(res2, fresh):
+            assert torch.equal(a, b)
+        assert not torch.equal(res1.seqs, res2.seqs)
+        with pytest.raises(RuntimeError, match="load"):
+            loop.run()
+
+    def test_replays_count_as_launches(self, cuda_device):
+        """3 decoder layers: K1 three times and K2 once per replayed step; the
+        capture itself counts nothing."""
+        from evoke_tpu_torch.decode.beam import BeamLoop
+
+        _, step, state0, kw = _loop_case(cuda_device, torch.bfloat16, "fused", False)
+        lineage_attention.launches = fused_logit_topk.launches = 0
+        loop = BeamLoop(step, state0, _LOOP_BATCH, graphs=True, **kw)
+        warm = len(_LOOP_SCHEDULE)             # one eager step per cache phase before capture
+        assert (lineage_attention.launches, fused_logit_topk.launches) == (3 * warm, warm)
+        lineage_attention.launches = fused_logit_topk.launches = 0
+        loop.load(state0)
+        loop.run()
+        steps = _LOOP_SCHEDULE[-1]
+        assert (lineage_attention.launches, fused_logit_topk.launches) == (3 * steps, steps)
+        assert set(loop._ledger.per_graph.values()) == {(3, 1)}
