@@ -31,7 +31,10 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    -Xptxas -v log. K3 (fusion attention) runs at the CLI default layout (32
    anchors, 64 images) and the flagship layout (64 anchors, 128 images), T 50,
    8 heads, dk 2048, bf16 and float32, on strided views as the module passes
-   them, with anchors of 0 (self slot), 1 and 3 partners;
+   them, with anchors of 0 (self slot), 1 and 3 partners; at bf16 kernel and
+   SDPA are timed in turns both ways; its wrapper's host time, its launch
+   plan and its registers and spills from the -Xptxas -v log are printed, and
+   a missing or spilling serving template fails the run;
 3. a correctness check on a small input: the full-width flagship at float32
    decodes two studies three ways: through the serving path (lineage kernel +
    fused tail) with the decode steps replayed from CUDA graphs, through the
@@ -372,7 +375,7 @@ def sdpa_backend(q, k, v, mask):
 
 
 def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
-    from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
+    from evoke_tpu_torch.ops.fusion_attention import (launch_plan, masked_cross_view_attention,
                                                       masked_cross_view_attention_plain)
 
     t, h, dk = 50, 8, 2048
@@ -397,19 +400,24 @@ def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
                              f"{err} > {tol}")
     del want
     kernel = functools.partial(masked_cross_view_attention, q, k, v, attend, t)
-    ms = time_ms(kernel, flush, reps=10)
-    dev_ms = time_ms(kernel, flush, reps=10, device_only=True)
-    plain_ms = time_ms(lambda: masked_cross_view_attention_plain(q, k, v, attend, t), flush,
-                       reps=5)
-    lib_ms, backend = None, "not timed"
+    lib_ms = dev_lib_ms = None
+    backend = "not timed"
     if library:
-        # library yardstick: SDPA, boolean [Q, 1, 1, N] mask, k/v expanded to Q
+        # library yardstick: SDPA, boolean [Q, 1, 1, N] mask, k/v expanded to Q;
+        # kernel and SDPA timed in turns (library, kernel, kernel, library), both ways
         mask = attend.repeat_interleave(t, dim=1)[:, None, None, :]
         ke, ve = k[None].expand(n_anchor, h, n, dk), v[None].expand(n_anchor, h, n, dk)
         backend = sdpa_backend(q, ke, ve, mask)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask),
-                         flush, reps=5)
-        del mask, ke, ve
+        sdpa = functools.partial(F.scaled_dot_product_attention, q, ke, ve, attn_mask=mask)
+        ms, lib_ms = time_in_turns(kernel, sdpa, flush, reps=5)
+        dev_ms, dev_lib_ms = time_in_turns(kernel, sdpa, flush, reps=5, device_only=True)
+        del mask, ke, ve, sdpa
+    else:
+        ms = time_ms(kernel, flush, reps=10)
+        dev_ms = time_ms(kernel, flush, reps=10, device_only=True)
+    wrapper_us = host_us(kernel, calls=200)
+    plain_ms = time_ms(lambda: masked_cross_view_attention_plain(q, k, v, attend, t), flush,
+                       reps=5)
     # this data's work: q, out and mask once, the K/V rows of every sample some
     # anchor attends once; QK and PV over each anchor's attended samples only
     isz = q.element_size()
@@ -417,12 +425,16 @@ def check_fusion_attention(dev, flush, g, dtype, n_anchor, library=True):
     nbytes = 2 * q.numel() * isz + 2 * rows * h * dk * isz + attend_np.size
     flops = 4 * t * t * dk * h * int(attend_np.sum())
     bms, by = bound_ms(nbytes, flops, dtype)
+    fmt = lambda x: "not timed" if x is None else f"{x:.4f}"
     log(f"kernel fusion_attention Q={n_anchor} B={b} T={t} h={h} dk={dk} "
         f"{str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-        f"(backend {backend}) bound_ms={bms:.4f} ({by}); device-only ms={dev_ms:.4f}")
+        f"plain_ms={plain_ms:.4f} sdpa_ms={fmt(lib_ms)} (backend {backend}) "
+        f"bound_ms={bms:.4f} ({by}); device-only ms={dev_ms:.4f} sdpa_ms={fmt(dev_lib_ms)}; "
+        f"wrapper host {wrapper_us:.1f} us/call")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, device_only_ms=dev_ms, sdpa_backend=backend)
+                library_ms=lib_ms, device_only_ms=dev_ms, device_only_library_ms=dev_lib_ms,
+                wrapper_host_us=wrapper_us, sdpa_backend=backend,
+                plan=launch_plan(t, dk, dtype))
 
 
 def check_fusion_module(dev, seed):
@@ -924,6 +936,21 @@ def main():
             k3[(dtype, n_anchor)] = check_fusion_attention(
                 dev, flush, g, dtype, n_anchor, library=dtype == torch.bfloat16)
             torch.cuda.empty_cache()
+    k3_ptxas = ptxas_report(f"{built['fusion_attention']}.log", ("cluster_kernel",))
+    log_ptxas(k3_ptxas)
+    k3_serving = k3_ptxas.get("cluster_kernel<bf16, 256>", {})
+    if not k3_serving.get("registers"):
+        raise AssertionError("no cluster_kernel<bf16, 256> entry in the -Xptxas -v log")
+    if k3_serving.get("spill_stores") or k3_serving.get("spill_loads"):
+        raise AssertionError(f"K3's serving template spills: {k3_serving}")
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = k3[(dtype, 64)]["plan"]
+        log(f"K3 {str(dtype)[6:]} plan T=50 dk=2048: route {plan['route']}, clusters of "
+            f"{plan['cluster']} blocks x {plan['chunk']} columns, {plan['threads']} threads, "
+            f"{plan['key_tile']}-key tiles in a ring of {plan['stages']}, one exchange per "
+            f"{plan['group_keys']} keys, {plan['smem_bytes']} B dynamic smem, "
+            f"{plan['blocks_per_sm']} blocks per SM, a block owns {plan['rows_per_block']} "
+            f"rows of the softmax")
     del flush
 
     # ---- phase 3: small-input reference check at float32 ----
@@ -1017,6 +1044,7 @@ def main():
                                  for k, v in k2.items()},
             "fused_logit_topk_ptxas": k2_ptxas,
             "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
+            "fusion_attention_ptxas": k3_ptxas,
             "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
             "cli_serve": cli_res,
             "main_path": dict(st, reference_token_agreement=agree),

@@ -2,14 +2,18 @@
 found under ``--root`` (default: this checkout), so that two trees compare
 within one call on one card (run parent, change, change, parent):
 
-    python3 scripts/kernel_wrapper_time.py --kernel k1|k2 [--root DIR] [--calls 1000]
+    python3 scripts/kernel_wrapper_time.py --kernel k1|k2|k3 [--root DIR] [--calls 1000]
 
 k1: lineage attention, 64 samples x beam 3, d 512, 8 heads, bf16, batch mode
 at pos = L - 1, uniformly random lineages, L 100 and L 50. k2: the fused
 logit + top-k tail, bf16, N 192 and 96, D 512, V 30001, k 3, suppress_ids
-(4,). Per shape, with chip_smoke.py's timers: ``host_us``, the host time of
-one wrapper call (host clock, median of ``--calls``, the device synchronized
-between calls); ``ms``, the call's CUDA-event time after a 64 MB L2-evicting
+(4,). k3: the masked cross-view fusion attention, T 50, 8 heads, dk 2048, on
+strided views of projection outputs as the fusion module passes them, at the
+flagship layout (64 anchors, 128 images) and the CLI layout (32 anchors, 64
+images), anchors with 0 (self slot), 1 and 3 partners, bf16 and float32. Per
+shape, with chip_smoke.py's timers: ``host_us``, the host time of one wrapper
+call (host clock, median of ``--calls``, at most 200 for k3, the device
+synchronized between calls); ``ms``, the call's CUDA-event time after a 64 MB L2-evicting
 memset, which includes host time that outlasts the memset;
 ``device_only_ms``, the same with the device spinning ~0.1 ms first, so only
 the device's work is timed. Prints one JSON line.
@@ -49,9 +53,27 @@ def k2_calls(torch, dev, g):
         yield f"N{n}", lambda h=h: fused_logit_topk(h, w, b, 3, (4,))
 
 
+def k3_calls(torch, dev, g, smoke):
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+
+    t, h, dk = 50, 8, 2048
+    for n_anchor in (64, 32):
+        _, attend_np = smoke.partner_layout(n_anchor)
+        b = attend_np.shape[1]
+        attend = torch.as_tensor(attend_np, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            xq, xk, xv = (torch.randn(n, t, h * dk, generator=g, device=dev).to(dtype)
+                          for n in (n_anchor, b, b))
+            q = xq.reshape(n_anchor, t, h, dk).transpose(1, 2)
+            k = xk.reshape(b * t, h, dk).transpose(0, 1)
+            v = xv.reshape(b * t, h, dk).transpose(0, 1)
+            yield (f"Q{n_anchor}_B{b}_{str(dtype)[6:]}",
+                   lambda a=(q, k, v, attend, t): masked_cross_view_attention(*a))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), required=True)
     ap.add_argument("--root", default=REPO, help="checkout whose evoke_tpu_torch is timed")
     ap.add_argument("--calls", type=int, default=1000)
     args = ap.parse_args()
@@ -70,8 +92,11 @@ def main():
     g.manual_seed(0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
     out = {"kernel": args.kernel, "root": os.path.abspath(args.root)}
-    for shape, call in {"k1": k1_calls, "k2": k2_calls}[args.kernel](torch, dev, g):
-        out[shape] = dict(host_us=smoke.host_us(call, args.calls),
+    calls = {"k1": k1_calls, "k2": k2_calls,
+             "k3": lambda *a: k3_calls(*a, smoke)}[args.kernel](torch, dev, g)
+    n_host = min(args.calls, 200) if args.kernel == "k3" else args.calls
+    for shape, call in calls:
+        out[shape] = dict(host_us=smoke.host_us(call, n_host),
                           ms=smoke.time_ms(call, flush),
                           device_only_ms=smoke.time_ms(call, flush, device_only=True))
     print(json.dumps(out))

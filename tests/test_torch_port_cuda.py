@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk, fused_logit_topk_plain
+from evoke_tpu_torch.ops.fusion_attention import _aligned as fusion_aligned
+from evoke_tpu_torch.ops.fusion_attention import launch_plan as launch_plan_k3
 from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
                                                   masked_cross_view_attention_plain)
 from evoke_tpu_torch.ops.lineage_attention import (launch_plan, lineage_attention,
@@ -99,6 +101,24 @@ def _assert_topk_close(got, want, dtype):
     assert ((gv - pv).abs() <= tol).all(), (gv - pv).abs().max().item()
     # an index may differ only where the values are within one ulp (a near-tie)
     assert not ((gi != pi) & ((gv - pv).abs() > tol)).any()
+
+
+def _fusion_inputs(dev, dtype, qn, b, t, h, dk, seed):
+    """q [Q, h, T, dk] and k, v [h, B * T, dk] as strided views of projection
+    outputs [*, T, h * dk], as the fusion module passes them; from numpy."""
+    rng = np.random.default_rng(seed)
+    x = lambda n: torch.as_tensor(rng.normal(size=(n, t, h * dk)).astype(np.float32)
+                                  ).to(dev).to(dtype)
+    return (x(qn).reshape(qn, t, h, dk).transpose(1, 2),
+            x(b).reshape(b * t, h, dk).transpose(0, 1),
+            x(b).reshape(b * t, h, dk).transpose(0, 1))
+
+
+def _assert_fusion_close(got, q, k, v, attend, t):
+    want = masked_cross_view_attention_plain(q, k, v, attend, t)
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 class TestOnCard:
@@ -239,31 +259,91 @@ class TestOnCard:
         _assert_topk_close(got, fused_logit_topk_plain(h, w, b, 3, (4,)), torch.bfloat16)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("t,dk", [(50, 2048), (70, 96), (5, 16)])
-    def test_fusion_attention_kernel(self, rng, cuda_device, dtype, t, dk):
-        """Strided views as the module passes them; anchors with 0 (self
-        slot), 1 and 3 partners; T above one 64-row tile and dk off the
-        256-column chunk."""
-        qn, b, h = 4, 6, 2
-        dev = lambda x: torch.as_tensor(x).to(cuda_device).to(dtype)
-        xq = dev(rng.normal(size=(qn, t, h * dk)).astype(np.float32))
-        xk = dev(rng.normal(size=(b, t, h * dk)).astype(np.float32))
-        xv = dev(rng.normal(size=(b, t, h * dk)).astype(np.float32))
-        q = xq.reshape(qn, t, h, dk).transpose(1, 2)
-        k = xk.reshape(b * t, h, dk).transpose(0, 1)
-        v = xv.reshape(b * t, h, dk).transpose(0, 1)
-        attend = np.zeros((qn, b), bool)
+    @pytest.mark.parametrize("t", [5, 50, 64, 65, 70, 130])
+    @pytest.mark.parametrize("dk", [16, 96, 264, 2048, 2304])
+    def test_fusion_attention_kernel(self, cuda_device, dtype, t, dk):
+        """T below, at and above one 64-row tile (and above two), so samples of
+        one key tile, a pair, a pair and one, and five; dk of one block, of 3
+        blocks with a ragged last chunk, of a full cluster of 8,
+        and above 8 chunks (the recompute route). Anchors attend 1 (the self
+        slot), 2, 4 and all B samples, and one attends only the last sample.
+        Strided views as the module passes them, then contiguous copies: the
+        same bits, and the same bits again on a second call (no atomics)."""
+        q, k, v = _fusion_inputs(cuda_device, dtype, 5, 6, t, 2, dk, seed=t + dk)
+        attend = np.zeros((5, 6), bool)
         attend[0, 0] = True
         attend[1, 1] = attend[1, 4] = True
         attend[2, [0, 2, 3, 5]] = True
         attend[3, 5] = True
+        attend[4] = True
         attend = torch.as_tensor(attend).to(cuda_device)
+        assert launch_plan_k3(t, dk, dtype)["route"] == ("recompute" if dk > 2048 else "cluster")
         n0 = masked_cross_view_attention.launches
         got = masked_cross_view_attention(q, k, v, attend, t)
         assert masked_cross_view_attention.launches == n0 + 1
-        want = masked_cross_view_attention_plain(q, k, v, attend, t)
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        _assert_fusion_close(got, q, k, v, attend, t)
+        assert torch.equal(got, masked_cross_view_attention(q, k, v, attend, t))
+        assert torch.equal(got, masked_cross_view_attention(q.contiguous(), k.contiguous(),
+                                                            v.contiguous(), attend, t))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("n_anchor", [32, 64])
+    def test_fusion_attention_kernel_layouts(self, cuda_device, dtype, n_anchor):
+        """The CLI layout (32 anchors, 64 images) and the flagship layout (64,
+        128) at full width: T 50, 8 heads, dk 2048; anchor i has (0, 1, 3,
+        0)[i % 4] partners, a partnerless anchor its self slot."""
+        b = 2 * n_anchor
+        partners = [(0, 1, 3, 0)[i % 4] for i in range(n_anchor)]
+        attend = np.zeros((n_anchor, b), bool)
+        aux = n_anchor
+        for i, n in enumerate(partners):
+            attend[i, aux:aux + n] = True
+            attend[i, i] = n == 0
+            aux += n
+        attend = torch.as_tensor(attend).to(cuda_device)
+        q, k, v = _fusion_inputs(cuda_device, dtype, n_anchor, b, 50, 8, 2048, seed=n_anchor)
+        got = masked_cross_view_attention(q, k, v, attend, 50)
+        _assert_fusion_close(got, q, k, v, attend, 50)
+        assert torch.equal(got, masked_cross_view_attention(q, k, v, attend, 50))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kind", ["dk_off_16_bytes", "base_off_16_bytes", "odd_row_stride"])
+    def test_fusion_attention_kernel_unaligned_rows(self, cuda_device, dtype, kind):
+        """Rows that do not start on 16-byte boundaries run on the card by the
+        recompute route's scalar loads, never by the plain version."""
+        qn, b, t, h = 3, 4, 50, 2
+        dk = 100 if kind != "dk_off_16_bytes" or dtype == torch.bfloat16 else 102
+        q, k, v = (x.contiguous() for x in _fusion_inputs(cuda_device, dtype, qn, b, t, h, dk, 1))
+        if kind == "base_off_16_bytes":
+            dk = 96
+            flat = torch.zeros(k.numel() + 1, dtype=dtype, device=cuda_device)
+            q, v = q[..., :96].contiguous(), v[..., :96].contiguous()
+            k = flat[1:1 + h * b * t * 96].view(h, b * t, 96).copy_(k[..., :96])
+        elif kind == "odd_row_stride":
+            dk = 96
+            q, k, v = q[..., :96], k[..., :96], v[..., 2:98]
+        assert not fusion_aligned(q, k, v)
+        attend = torch.as_tensor(np.eye(qn, b, dtype=bool) | np.eye(qn, b, 1, dtype=bool)
+                                 ).to(cuda_device)
+        n0 = masked_cross_view_attention.launches
+        got = masked_cross_view_attention(q, k, v, attend, t)
+        assert masked_cross_view_attention.launches == n0 + 1
+        _assert_fusion_close(got, q, k, v, attend, t)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_fusion_attention_kernel_many_samples(self, cuda_device, dtype):
+        """More samples than one pass of the block's sample list (256): an
+        anchor that attends samples of two passes, one that attends all 300,
+        one that attends only the last."""
+        qn, b, t, h, dk = 3, 300, 5, 2, 256
+        q, k, v = _fusion_inputs(cuda_device, dtype, qn, b, t, h, dk, seed=3)
+        attend = np.zeros((qn, b), bool)
+        attend[0, [0, 255, 256, 299]] = True
+        attend[1] = True
+        attend[2, 299] = True
+        attend = torch.as_tensor(attend).to(cuda_device)
+        got = masked_cross_view_attention(q, k, v, attend, t)
+        _assert_fusion_close(got, q, k, v, attend, t)
 
 
 # ---- the beam loop replayed from CUDA graphs against the same loop run eagerly ----
