@@ -70,7 +70,20 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    directory with a 30000-word tokenizer, decode steps captured; one
    non-empty report per test study, K1:K2 launches 3:1, reports/s with and
    without the capture time;
-7. a JSON line of every ported kernel, then the result line.
+7. the test CLI in-process over phase 6's dataset and configuration, with a
+   BERT-base-width CheXbert checkpoint written to the temporary directory
+   (HF key names, 'module.' prefix, seeded weights, a 30522-entry vocab):
+   beam 3 on the eval path (reorder caches, one cache phase, the plain vocab
+   tail: K1 and K2 launch 0 times), captured; test_prediction.csv must hold
+   the 11 metric rows first (BLEU 1-4, METEOR, ROUGE_L, CIDEr and four
+   CheXbert F1s; no degraded metric), each finite and in range, then one
+   non-empty row per study; the score CLI on that file must print the same
+   NLG values; the labeler's float32 logits on the card must match the same
+   module on the CPU for 8 reports within ``CHEXBERT_TOL``. Prints the test
+   wall with and without the capture, decode reports/s, the host seconds
+   in compute_nlg_scores, CheXbert's device seconds (CUDA events) and
+   reports/s, and peak GiB, beside the card's name and power limit;
+8. a JSON line of every ported kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -85,6 +98,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -488,85 +502,93 @@ def check_fusion_module(dev, seed):
     return n_k3, errs
 
 
-def serve_cli(seed):
-    """The serve CLI in-process at full width over a synthetic dataset: every
-    CLI default but bf16. Returns the phase's numbers."""
-    import contextlib
-    import io
+def write_cli_dataset(root, seed):
+    """Phase 6's and 7's data in ``root``: a synthetic dataset (224 px .npy,
+    160 test studies) and a 30000-word tokenizer where build_tokenizer looks.
+    Returns (annotation path, tokenizer dir, test studies with indication,
+    without)."""
     import os
-    import tempfile
 
-    from evoke_tpu_torch import cli, serve
     from evoke_tpu_torch.data.datasets import load_annotation, parse_finetune
     from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
     from evoke_tpu_torch.data.tokenizer import WordTokenizer
+
+    t0 = time.perf_counter()
+    ann = write_synthetic_dataset(root, n_train=8, n_val=0, n_test=160, image_size=224,
+                                  seed=seed)
+    has_ind, no_ind = parse_finetune(load_annotation(ann), "test")
+    if len(has_ind) < 96 or not no_ind:
+        raise AssertionError(f"synthetic split: {len(has_ind)} studies with "
+                             f"indication, {len(no_ind)} without")
+    # a 30000-word vocab where build_tokenizer looks: the dataset's words first
+    words = {w: i for w, i in WordTokenizer.train(
+        r["report"] for r in load_annotation(ann)["train"]).vocab.items()
+        if w not in ("[BOS]", "[EOS]")}                  # re-appended last
+    for i in range(30000 - 2 - len(words)):
+        words[f"w{i}"] = len(words)
+    tok = WordTokenizer(words)
+    assert tok.get_vocab_size() == 30000
+    tok_dir = os.path.join(root, "tok")
+    os.makedirs(tok_dir)
+    tok.save(os.path.join(tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
+    log(f"cli data: {len(has_ind)} test studies with indication, {len(no_ind)} "
+        f"without, 224 px .npy, {time.perf_counter() - t0:.1f}s")
+    return ann, tok_dir, has_ind, no_ind
+
+
+def serve_cli(root, ann, tok_dir, has_ind, no_ind):
+    """The serve CLI in-process at full width over the synthetic dataset:
+    every CLI default but bf16. Returns the phase's numbers."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    from evoke_tpu_torch import cli, serve
     from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
     from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
     from evoke_tpu_torch.ops.lineage_attention import lineage_attention
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        t0 = time.perf_counter()
-        ann = write_synthetic_dataset(root, n_train=8, n_val=0, n_test=160, image_size=224,
-                                      seed=seed)
-        has_ind, no_ind = parse_finetune(load_annotation(ann), "test")
-        if len(has_ind) < 96 or not no_ind:
-            raise AssertionError(f"synthetic split: {len(has_ind)} studies with "
-                                 f"indication, {len(no_ind)} without")
-        # a 30000-word vocab where build_tokenizer looks: the dataset's words first
-        words = {w: i for w, i in WordTokenizer.train(
-            r["report"] for r in load_annotation(ann)["train"]).vocab.items()
-            if w not in ("[BOS]", "[EOS]")}                  # re-appended last
-        for i in range(30000 - 2 - len(words)):
-            words[f"w{i}"] = len(words)
-        tok = WordTokenizer(words)
-        assert tok.get_vocab_size() == 30000
-        tok_dir = os.path.join(root, "tok")
-        os.makedirs(tok_dir)
-        tok.save(os.path.join(tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
-        log(f"cli data: {len(has_ind)} test studies with indication, {len(no_ind)} "
-            f"without, 224 px .npy, {time.perf_counter() - t0:.1f}s")
+    stats = []
+    serve_fn = serve.ReportServer.serve
 
-        stats = []
-        serve_fn = serve.ReportServer.serve
+    def recording_serve(self, *a, **kw):
+        out = serve_fn(self, *a, **kw)
+        stats.append(dict(self.stats))
+        return out
 
-        def recording_serve(self, *a, **kw):
-            out = serve_fn(self, *a, **kw)
-            stats.append(dict(self.stats))
-            return out
-
-        serve.ReportServer.serve = recording_serve
-        buf = io.StringIO()
-        torch.cuda.reset_peak_memory_stats()
-        lineage_attention.launches = 0
-        fused_logit_topk.launches = 0
-        masked_cross_view_attention.launches = 0
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(["serve", "--data.ann_path", ann, "--data.image_dir", root,
-                               "--data.tokenizer_dir", tok_dir,
-                               "--trainer.result_dir", os.path.join(root, "results"),
-                               "--model.dtype", "bfloat16"])
-            torch.cuda.synchronize()
-        finally:
-            serve.ReportServer.serve = serve_fn
-        wall = time.perf_counter() - t0
-        n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
-        n_k3 = masked_cross_view_attention.launches
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        printed = buf.getvalue().strip().splitlines()
-        log("cli stdout: " + " | ".join(printed))
-        if rc != 0:
-            raise AssertionError(f"cli serve returned {rc}")
-        summary = json.loads(printed[-1])
-        csv_path = os.path.join(root, "results", "mimic_cxr", "serve", "v1",
-                                "serve_prediction.csv")
-        import csv
-
-        with open(csv_path, newline="") as f:
-            rows = list(csv.reader(f))
+    serve.ReportServer.serve = recording_serve
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+    masked_cross_view_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve", "--data.ann_path", ann, "--data.image_dir", root,
+                           "--data.tokenizer_dir", tok_dir,
+                           "--trainer.result_dir", os.path.join(root, "results"),
+                           "--model.dtype", "bfloat16"])
+        torch.cuda.synchronize()
+    finally:
+        serve.ReportServer.serve = serve_fn
+    wall = time.perf_counter() - t0
+    n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
+    n_k3 = masked_cross_view_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    printed = buf.getvalue().strip().splitlines()
+    log("cli stdout: " + " | ".join(printed))
+    if rc != 0:
+        raise AssertionError(f"cli serve returned {rc}")
+    summary = json.loads(printed[-1])
+    csv_path = os.path.join(root, "results", "mimic_cxr", "serve", "v1",
+                            "serve_prediction.csv")
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
     want_ids = sorted(e.id for e in has_ind + no_ind)
-    if rows[0] != ["images_id", "generated_reports", "ground_truth"]             or sorted(r[0] for r in rows[1:]) != want_ids:
+    if rows[0] != ["images_id", "generated_reports", "ground_truth"] \
+            or sorted(r[0] for r in rows[1:]) != want_ids:
         raise AssertionError(f"cli csv: {len(rows) - 1} rows for {len(want_ids)} studies")
     if not all(r[1].strip() for r in rows[1:]):
         raise AssertionError("cli csv: empty report")
@@ -592,6 +614,244 @@ def serve_cli(seed):
         f"indication batch_latency_p50_s={[round(x, 4) for x in p50]}), cli wall "
         f"{wall:.1f}s, peak_mem_gib={peak_gib:.2f}, launches lineage={n_k1} fused={n_k2} "
         f"fusion_attention={n_k3}")
+    return out
+
+
+CHEXBERT_SHAPE = dict(hidden=768, layers=12, intermediate=3072, positions=512, vocab=30522)
+# CheXbert logits, card against CPU, float32 with TF32 off: the two devices sum
+# 12 layers of float32 products over 768 / 3072 in other orders
+CHEXBERT_TOL = 1e-4
+METRIC_ROWS = ("BLEU_1", "BLEU_2", "BLEU_3", "BLEU_4", "METEOR", "ROUGE_L", "CIDer",
+               "chexbert_5_micro_f1", "chexbert_all_micro_f1", "chexbert_5_macro_f1",
+               "chexbert_all_macro_f1")
+
+
+def write_chexbert_checkpoint(directory, words, dev, seed):
+    """A BERT-base-width CheXbert checkpoint in ``directory``, as the real
+    ``chexbert.pth`` lays it out: {'model_state_dict': {'module.bert.<HF
+    BertModel key>', 'module.linear_heads.<i>.*'}}, pooler and position ids
+    included; matrices and biases N(0, 0.02) from a seeded torch.Generator,
+    LayerNorm scales 1. Beside it a 30522-entry WordPiece vocab.txt in the
+    bert-base-uncased layout ([PAD], 99 [unused], [UNK] [CLS] [SEP] [MASK],
+    then ``words``, then filler). Returns the checkpoint's path."""
+    import os
+
+    c = CHEXBERT_SHAPE
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(words) + ["##s", "##es"])
+    vocab += [f"x{i}" for i in range(c["vocab"] - len(vocab))]
+    assert len(vocab) == c["vocab"] == len(set(vocab))
+    with open(os.path.join(directory, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    h, ff = c["hidden"], c["intermediate"]
+    shapes = {"embeddings.word_embeddings.weight": (c["vocab"], h),
+              "embeddings.position_embeddings.weight": (c["positions"], h),
+              "embeddings.token_type_embeddings.weight": (2, h),
+              "embeddings.LayerNorm.weight": (h,), "embeddings.LayerNorm.bias": (h,)}
+    for i in range(c["layers"]):
+        pre = f"encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key", "attention.self.value",
+                     "attention.output.dense"):
+            shapes[pre + name + ".weight"], shapes[pre + name + ".bias"] = (h, h), (h,)
+        shapes[pre + "intermediate.dense.weight"] = (ff, h)
+        shapes[pre + "intermediate.dense.bias"] = (ff,)
+        shapes[pre + "output.dense.weight"], shapes[pre + "output.dense.bias"] = (h, ff), (h,)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[pre + ln + ".weight"], shapes[pre + ln + ".bias"] = (h,), (h,)
+    shapes["pooler.dense.weight"], shapes["pooler.dense.bias"] = (h, h), (h,)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        if key.endswith("LayerNorm.weight"):
+            sd["module.bert." + key] = torch.ones(shape)
+        else:
+            sd["module.bert." + key] = (torch.randn(shape, generator=g, device=dev)
+                                        * 0.02).cpu()
+    sd["module.bert.embeddings.position_ids"] = torch.arange(c["positions"])[None]
+    for i in range(14):
+        n = 4 if i < 13 else 2
+        sd[f"module.linear_heads.{i}.weight"] = (torch.randn(n, h, generator=g, device=dev)
+                                                 * 0.02).cpu()
+        sd[f"module.linear_heads.{i}.bias"] = (torch.randn(n, generator=g, device=dev)
+                                               * 0.02).cpu()
+    path = os.path.join(directory, "chexbert.pth")
+    torch.save({"model_state_dict": sd}, path)
+    return path
+
+
+def test_cli(root, ann, tok_dir, has_ind, no_ind, smi, seed):
+    """The test CLI in-process at full width over phase 6's dataset (every CLI
+    default but bf16; beam 3 on the eval path, captured) with a BERT-base
+    CheXbert the phase writes; then the score CLI on its test_prediction.csv, and
+    the labeler's float32 logits on the card against the same module on the
+    CPU. Returns the phase's numbers."""
+    import contextlib
+    import copy
+    import csv
+    import gc
+    import io
+    import os
+
+    from evoke_tpu_torch import cli
+    from evoke_tpu_torch.data.tokenizer import WordTokenizer
+    from evoke_tpu_torch.evals import chexbert, composite
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chex_dir = os.path.join(root, "chexbert")
+    os.makedirs(chex_dir)
+    words = sorted(w for w in WordTokenizer.from_file(os.path.join(
+        tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json")).vocab if not w.startswith("["))
+    ck = write_chexbert_checkpoint(chex_dir, words, torch.device("cuda"), seed + 3)
+    log(f"chexbert checkpoint: BERT-base ({os.path.getsize(ck) / 2 ** 20:.0f} MiB) written "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+    testers, nlg_s, label_s, label_n, fwd_events = [], [], [], [], []
+    test_fn, nlg_fn = trainer.Tester.test, composite.compute_nlg_scores
+    label_fn, fwd_fn = chexbert.F1CheXbert.label, chexbert.ChexbertLabeler.forward
+
+    def recording_test(self):
+        testers.append(self)
+        return test_fn(self)
+
+    def timed_nlg(*a):
+        t = time.perf_counter()
+        out = nlg_fn(*a)
+        nlg_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_label(self, reports):
+        t = time.perf_counter()
+        out = label_fn(self, reports)
+        label_s.append(time.perf_counter() - t)
+        label_n.append(len(reports))
+        return out
+
+    def timed_forward(self, *a):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fwd_fn(self, *a)
+        e.record()
+        fwd_events.append((s, e))
+        return out
+
+    trainer.Tester.test, composite.compute_nlg_scores = recording_test, timed_nlg
+    chexbert.F1CheXbert.label, chexbert.ChexbertLabeler.forward = timed_label, timed_forward
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+    masked_cross_view_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["test", "--data.ann_path", ann, "--data.image_dir", root,
+                           "--data.tokenizer_dir", tok_dir,
+                           "--trainer.result_dir", os.path.join(root, "results"),
+                           "--model.dtype", "bfloat16", "--metrics.chexbert_checkpoint", ck])
+        torch.cuda.synchronize()
+    finally:
+        trainer.Tester.test, composite.compute_nlg_scores = test_fn, nlg_fn
+        chexbert.F1CheXbert.label, chexbert.ChexbertLabeler.forward = label_fn, fwd_fn
+    wall = time.perf_counter() - t0
+    n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
+    n_k3 = masked_cross_view_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("cli test stdout (last lines): " + " | ".join(buf.getvalue().strip().splitlines()[-4:]))
+    if rc != 0:
+        raise AssertionError(f"cli test returned {rc}")
+    (tester,) = testers
+    stats = dict(tester.stats)
+    loops = [loop for g in (tester.gen_inc, tester.gen_noinc) for loop, _ in g.loops.values()]
+    del testers, tester
+    csv_path = os.path.join(root, "results", "mimic_cxr", "test", "v1", "test_prediction.csv")
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+
+    # ---- checks ----
+    k = len(METRIC_ROWS)
+    if rows[0] != ["images_id", "ground_truth", "pred_test"] \
+            or tuple(r[1] for r in rows[1:k + 1]) != METRIC_ROWS \
+            or any(not r[0].startswith("__metric__") for r in rows[1:k + 1]) \
+            or any(r[0].startswith("__metric__") for r in rows[k + 1:]):
+        raise AssertionError(f"cli test csv: metric rows {[r[0] for r in rows[1:k + 2]]}, "
+                             f"want {METRIC_ROWS} first and nothing else (no degraded_metrics)")
+    metrics = {r[1]: float(r[2]) for r in rows[1:k + 1]}
+    for name, v in metrics.items():
+        hi = 10.0 if name == "CIDer" else 1.0
+        if not (math.isfinite(v) and 0.0 <= v <= hi):
+            raise AssertionError(f"cli test: {name} = {v}, outside [0, {hi}]")
+    want_ids = sorted(e.id for e in has_ind + no_ind)
+    if sorted(r[0] for r in rows[k + 1:]) != want_ids or not all(
+            r[1].strip() and r[2].strip() for r in rows[k + 1:]):
+        raise AssertionError(f"cli test csv: {len(rows) - 1 - k} study rows for "
+                             f"{len(want_ids)} studies, or an empty cell")
+    if n_k1 or n_k2 or n_k3:
+        raise AssertionError(f"cli test launch counts: lineage {n_k1}, fused {n_k2}, fusion "
+                             f"{n_k3} (the eval path launches none)")
+    if not (loops and all(loop.graphs for loop in loops) and stats["capture_s"] > 0):
+        raise AssertionError("cli test: the eval path's decode steps were not captured")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["score", "--data.ann_path", csv_path])
+    scored = json.loads(buf.getvalue())
+    if rc != 0 or scored != {n: metrics[n] for n in METRIC_ROWS[:7]}:
+        raise AssertionError(f"cli score {scored} != the csv's metric rows {metrics}")
+    (scorer,) = composite._SCORER_CACHE.values()
+    encoder_tensors = 5 + 16 * CHEXBERT_SHAPE["layers"]
+    if scorer.import_report != {"loaded": encoder_tensors, "mismatched": 0, "missing": 0}:
+        raise AssertionError(f"chexbert import: {scorer.import_report}")
+    reports = [r[1] for r in rows[k + 1:k + 5]] + [r[2] for r in rows[k + 1:k + 5]]
+    ids = np.stack([scorer._encode(r) for r in reports])
+    ids = ids[:, :int((ids != scorer.tokenizer.pad_id).sum(1).max())]
+    mask = (ids != scorer.tokenizer.pad_id).astype(np.int32)
+    cpu_model = copy.deepcopy(scorer.model).cpu()
+    with torch.inference_mode():
+        card = torch.cat(scorer.model(torch.as_tensor(ids, device=scorer.device),
+                                      torch.as_tensor(mask, device=scorer.device)), 1).cpu()
+        host = torch.cat(cpu_model(torch.as_tensor(ids), torch.as_tensor(mask)), 1)
+    chex_err = (card - host).abs().max().item()
+    if not chex_err <= CHEXBERT_TOL:
+        raise AssertionError(f"chexbert logits card vs cpu: max abs err {chex_err} > "
+                             f"{CHEXBERT_TOL}")
+    chex_batch = f"{scorer.batch_size} x {scorer.max_len}"
+    del cpu_model, scorer
+    composite._SCORER_CACHE.clear()
+
+    # ---- numbers ----
+    chex_dev_s = sum(s.elapsed_time(e) for s, e in fwd_events) / 1e3
+    out = dict(cli_wall_s=wall, cli_wall_s_without_capture=wall - stats["capture_s"],
+               capture_s=stats["capture_s"], reports=int(stats["reports"]),
+               decode_s=stats["decode_s"],
+               decode_reports_per_s=stats["reports"] / (stats["decode_s"] - stats["capture_s"]),
+               metrics_s=stats["metrics_s"], nlg_s=sum(nlg_s),
+               chexbert_label_s=sum(label_s), chexbert_reports=sum(label_n),
+               chexbert_batches=len(fwd_events), chexbert_device_s=chex_dev_s,
+               chexbert_reports_per_s_device=sum(label_n) / chex_dev_s,
+               chexbert_logits_max_abs_err=chex_err, peak_mem_gib=peak_gib,
+               launches_lineage=n_k1, launches_fused=n_k2, launches_fusion_attention=n_k3,
+               metrics=metrics, device=smi)
+    log(f"cli test [{smi}]: {out['reports']} reports + {k} metric rows; cli wall "
+        f"{wall:.2f}s with the capture of the decode steps ({stats['capture_s']:.2f}s, "
+        f"{len(loops)} loops), {out['cli_wall_s_without_capture']:.2f}s without; decode "
+        f"{out['decode_reports_per_s']:.2f} reports/s without the capture (decode wall "
+        f"{stats['decode_s']:.2f}s); metrics {stats['metrics_s']:.2f}s, of which "
+        f"compute_nlg_scores {out['nlg_s']:.3f}s (host)")
+    log(f"cli test chexbert [{smi}]: {out['chexbert_reports']} reports in "
+        f"{len(fwd_events)} batches of {chex_batch}, device {chex_dev_s:.3f}s by CUDA events "
+        f"({out['chexbert_reports_per_s_device']:.1f} reports/s), label() wall "
+        f"{out['chexbert_label_s']:.3f}s ({sum(label_n) / sum(label_s):.1f} reports/s); "
+        f"logits card vs cpu max abs err {chex_err:.3e} (tol {CHEXBERT_TOL}, 8 reports, "
+        f"float32); peak_mem_gib={peak_gib:.2f}; launches lineage={n_k1} fused={n_k2} "
+        f"fusion_attention={n_k3}; metrics "
+        + " ".join(f"{n}={v:.4f}" for n, v in metrics.items()))
     return out
 
 
@@ -1014,8 +1274,13 @@ def main():
     log(f"fusion module phase: launches fusion_attention={n_k3}, "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # ---- phase 6: the serve CLI ----
-    cli_res = serve_cli(args.seed)
+    # ---- phases 6 and 7: the serve and test CLIs over one synthetic dataset ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        data = write_cli_dataset(root, args.seed)
+        cli_res = serve_cli(root, *data)
+        t0 = time.perf_counter()
+        test_res = test_cli(root, *data, smi, args.seed)
+        log(f"test cli phase {time.perf_counter() - t0:.1f}s")
 
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
@@ -1046,7 +1311,7 @@ def main():
             "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
             "fusion_attention_ptxas": k3_ptxas,
             "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
-            "cli_serve": cli_res,
+            "cli_serve": cli_res, "cli_test": test_res,
             "main_path": dict(st, reference_token_agreement=agree),
             "main_path_runs": runs, "main_path_set_up": set_up,
             "decode_step_wall_ms": step_wall, "early_stop": early,

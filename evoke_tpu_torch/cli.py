@@ -6,9 +6,20 @@ reads a YAML config; ``--device cuda|cpu`` (default cuda) picks the device:
 without CUDA the run raises unless ``--device cpu`` is given, which runs the
 kernels' plain PyTorch versions.
 
-Ported: ``serve`` with the batch engine (pipelined beam decode over the test
-split, ``serve_prediction.csv`` and a JSON throughput summary). The other
-tasks raise NotImplementedError naming their ROADMAP item.
+Ported:
+
+- ``test``: beam decode of the test split on the eval path, the metrics (NLG
+  always; CheXbert on the device when ``--metrics.chexbert_checkpoint`` is
+  set; the other CE metrics when their packages and checkpoints are there),
+  ``test_prediction.csv`` with the metric rows first, ``test.log``,
+  ``metrics.jsonl`` and ``config.json``;
+- ``score``: the NLG metrics of a predictions file (``--data.ann_path``: a
+  ``test_prediction.csv`` or JSON ``{"gts": {id: text}, "res": {id: text}}``)
+  as JSON on stdout; runs on the host;
+- ``serve`` with the batch engine (pipelined beam decode over the test split,
+  ``serve_prediction.csv`` and a JSON throughput summary).
+
+The other tasks raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,8 +31,7 @@ import sys
 from typing import Dict, List, Optional
 
 TASKS = ("pretrain", "finetune", "test", "retrieve", "score", "serve")
-_NOT_PORTED = {"pretrain": "A11", "retrieve": "A11", "finetune": "A10", "test": "A7b",
-               "score": "A7b"}
+_NOT_PORTED = {"pretrain": "A11", "retrieve": "A11", "finetune": "A10"}
 
 
 def build_model(cfg, vocab_size: int, device):
@@ -92,6 +102,23 @@ def _pop_option(argv: List[str], name: str):
     return None
 
 
+def metrics_fn_for(cfg, device="cuda"):
+    """NLG always; CE metrics only when their checkpoints/deps are available
+    (CheXbert on ``device``)."""
+    from evoke_tpu_torch.evals.composite import compute_all_scores
+
+    def fn(gts: Dict[str, List[str]], res: Dict[str, List[str]]) -> Dict[str, float]:
+        return compute_all_scores(gts, res, cfg.metrics, device)
+
+    return fn
+
+
+def _check_heatmaps(cfg) -> None:
+    if cfg.trainer.plot_heatmaps > 0:
+        raise NotImplementedError("trainer.plot_heatmaps > 0: attention heatmaps are "
+                                  "ROADMAP A12b")
+
+
 def _check_serve_config(cfg) -> None:
     if cfg.decode.engine != "batch":
         raise NotImplementedError(f"decode.engine={cfg.decode.engine!r}: only the batch "
@@ -99,9 +126,7 @@ def _check_serve_config(cfg) -> None:
     if cfg.decode.serve_dp:
         raise NotImplementedError(f"decode.serve_dp={cfg.decode.serve_dp}: multi-GPU "
                                   "serving is ROADMAP A13")
-    if cfg.trainer.plot_heatmaps > 0:
-        raise NotImplementedError("trainer.plot_heatmaps > 0: attention heatmaps are "
-                                  "ROADMAP A12b")
+    _check_heatmaps(cfg)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -124,10 +149,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     # serve keeps its own task name (results/{data}/serve/{version})
     cfg = load_config(yaml_path, overrides={"trainer.task": task}, argv=rest)
     cfg.trainer.task = task
-    if task != "serve":
+    if task in _NOT_PORTED:
         raise NotImplementedError(f"task {task!r} is not ported yet "
-                                  f"(ROADMAP {_NOT_PORTED[task]}); ported: serve")
-    _check_serve_config(cfg)
+                                  f"(ROADMAP {_NOT_PORTED[task]}); ported: test, score, serve")
+    if task == "score":
+        return _score(cfg)
+    if task == "serve":
+        _check_serve_config(cfg)
+    else:
+        _check_heatmaps(cfg)
     device = resolve_device(device)
 
     from evoke_tpu_torch.data.datasets import load_annotation
@@ -141,12 +171,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg.vocab_size = tokenizer.get_vocab_size()
     model = build_model(cfg, cfg.vocab_size, device)
     init_params_(model, cfg.trainer.seed)
+    model.eval()
+    loaders = build_loaders(cfg, tokenizer, ann)
+    if task == "test":
+        from evoke_tpu_torch.train.trainer import Tester
+
+        # Tester loads --trainer.load into the model (BaseTrainer._partial_load)
+        Tester(cfg, model, tokenizer, eval_loaders={"test": loaders},
+               metrics_fn=metrics_fn_for(cfg, device), device=device).test()
+        return 0
     if cfg.trainer.load:
         from evoke_tpu_torch.core.checkpoint import partial_restore_from
 
         print(f"loaded weights: {partial_restore_from(cfg.trainer.load, model)}")
-    model.eval()
-    return _serve(cfg, model, tokenizer, build_loaders(cfg, tokenizer, ann), device)
+    return _serve(cfg, model, tokenizer, loaders, device)
 
 
 def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
@@ -176,6 +214,34 @@ def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
     print(json.dumps({"reports": n, "wall_s": round(wall, 3),
                       "reports_per_s": round(n / wall, 3) if wall else None,
                       "prediction_csv": out_path}))
+    return 0
+
+
+def _score(cfg) -> int:
+    """Score a predictions file (``--data.ann_path``): JSON ``{gts, res}`` or a
+    test_prediction.csv, whose metric rows (``__metric__*``, or the
+    reference's rows with an empty ground truth) are dropped and whose last
+    ``pred_*`` column (else ``generated_reports``) is scored."""
+    from evoke_tpu_torch.evals.nlg import compute_nlg_scores
+
+    path = cfg.data.ann_path
+    if path.endswith(".csv"):
+        from evoke_tpu_torch.core.loggers import read_csv
+
+        columns, rows = read_csv(path)
+        rows = [r for r in rows if not str(r["images_id"]).startswith("__metric__")
+                and r["ground_truth"] is not None]
+        pred_cols = [c for c in columns if c.startswith("pred_")]
+        pred_col = pred_cols[-1] if pred_cols else "generated_reports"
+        text = lambda v: "nan" if v is None else v       # pandas' str(NaN)
+        gts = {r["images_id"]: [text(r["ground_truth"])] for r in rows}
+        res = {r["images_id"]: [text(r[pred_col])] for r in rows}
+    else:
+        with open(path) as f:
+            blob = json.load(f)
+        gts = {k: [v] for k, v in blob["gts"].items()}
+        res = {k: [v] for k, v in blob["res"].items()}
+    print(json.dumps(compute_nlg_scores(gts, res), indent=2))
     return 0
 
 

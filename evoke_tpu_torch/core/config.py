@@ -14,6 +14,7 @@ naming its ROADMAP item (e.g. ``decode.engine=continuous``, A9).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional
@@ -206,6 +207,32 @@ class EvokeConfig:
     def result_dir(self) -> str:
         return os.path.join(self.trainer.result_dir, self.data.data_name,
                             self.trainer.task, self.trainer.version)
+
+    @property
+    def monitor_mode(self) -> str:
+        if self.trainer.task in ("pretrain", "pretrain_inference"):
+            return self.trainer.pt_monitor_mode
+        return self.trainer.ft_monitor_mode
+
+    @property
+    def monitor_metric(self) -> str:
+        if self.trainer.task in ("pretrain", "pretrain_inference"):
+            return self.trainer.pt_monitor_metric
+        return self.trainer.ft_monitor_metric
+
+    @property
+    def lr_monitor_metric(self) -> str:
+        if self.trainer.task in ("pretrain", "pretrain_inference"):
+            return self.trainer.pt_lr_monitor_metric
+        return self.trainer.ft_lr_monitor_metric
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str) -> None:
+        """``config.json`` of a run, byte for byte as the JAX package writes it."""
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
 
 
 _SECTIONS = {f.name for f in fields(EvokeConfig)

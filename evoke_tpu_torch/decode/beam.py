@@ -15,7 +15,7 @@ all) and the host only replays them; on the CPU the same ``one_step`` runs
 eagerly. With ``early_stop`` a device flag (every beam has finished) masks a
 surplus step's writes to what the search returns, and the host reads that
 flag once per cache phase, never after the last one. Diverse beam search,
-greedy and sampled decoding are ROADMAP A12; ``chain_split`` has no
+greedy and sampled decoding are ROADMAP A12a; ``chain_split`` has no
 counterpart.
 """
 

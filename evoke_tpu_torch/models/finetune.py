@@ -4,7 +4,7 @@ Visual encoder -> multiview fusion -> projection head (affine-free final BN)
 -> BertCrossLayer co-attention over the encoded indication (or BertLayer
 self-attention without one) -> R2Gen decoder over the patch tokens (1:).
 Only ``decoder_kind="r2gen"`` with ``visual_encoder="resnet101"`` is ported;
-the other decoders and ViT are ROADMAP A12, training is A10.
+the other decoders and ViT are ROADMAP A12b, training is A10.
 """
 
 from __future__ import annotations
@@ -37,10 +37,10 @@ class FinetuneModel(nn.Module):
         super().__init__()
         if decoder_kind != "r2gen":
             raise NotImplementedError(
-                f"decoder_kind={decoder_kind!r}: only r2gen is ported (ROADMAP A12)")
+                f"decoder_kind={decoder_kind!r}: only r2gen is ported (ROADMAP A12b)")
         if visual_encoder != "resnet101":
             raise NotImplementedError(
-                f"visual_encoder={visual_encoder!r}: only resnet101 is ported (ROADMAP A12)")
+                f"visual_encoder={visual_encoder!r}: only resnet101 is ported (ROADMAP A12b)")
         self.decoder_kind = decoder_kind
         self.d_model = d_model
         self.dtype = dtype

@@ -217,7 +217,7 @@ def cached_self_attention(attn, h, cache_k, cache_v, pos: int, anc=None, age=Non
     anc [B, k, L]: beam-lineage attention over un-permuted caches through
     ``attn.attend_lineage`` (the lineage kernel on the card, its plain
     version on the CPU), batch mode or, with ``age``, ring mode. The int8
-    cache branch is ROADMAP A12."""
+    cache branch is ROADMAP A12a."""
     if age is not None and anc is None:
         lmax = cache_k.shape[1]
         delta = torch.remainder(pos - torch.arange(lmax, device=h.device), lmax)

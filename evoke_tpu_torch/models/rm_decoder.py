@@ -13,7 +13,7 @@ Dtypes follow the JAX package, which rounds at these places (bf16 compute):
 
 Unlike JAX, ``decode_step`` writes the new K/V into the caches IN PLACE (the
 returned state holds the same cache tensors): a decode state is used once.
-The training forward (``decode_train``) and the int8 cache are ROADMAP A10/A12.
+The training forward (``decode_train``) and the int8 cache are ROADMAP A10/A12a.
 """
 
 from __future__ import annotations

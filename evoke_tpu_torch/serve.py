@@ -48,6 +48,15 @@ def generate_stream(gen, batches: Iterable[Tuple[Dict, Dict]],
         yield h, out.cpu().numpy()
 
 
+def with_host_valid(batches):
+    """Keep a host copy of each loader batch's ``valid`` (``_valid``) beside
+    the copy that goes to the device, so the host never reads it back."""
+    for b in batches:
+        b = dict(b)
+        b["_valid"] = np.asarray(b["valid"])
+        yield b
+
+
 class ReportServer:
     """Batched, pipelined report generation over a model holding its weights.
 
@@ -85,9 +94,7 @@ class ReportServer:
         records: List[Dict[str, Any]] = []
 
         def checked(batches):
-            for b in batches:
-                b = dict(b)
-                b["_valid"] = np.asarray(b["valid"])
+            for b in with_host_valid(batches):
                 if self._max_partners is not None:
                     got = max_partners_in(b["pids"], b["valid"], np.shape(b["ids"])[0])
                     if got > self._max_partners:

@@ -7,7 +7,7 @@ kernel, an 8-phase cache schedule and the fused logit + top-k tail (on CPU
 tensors the kernels' plain versions run); eval paths (``serving=False``)
 resolve to reorder caches, one phase and the unfused tail, as in JAX. Only
 the beam path (beam_size > 1, group_size 1) is ported; greedy / sampled /
-diverse decoding and int8 caches are ROADMAP A12, the train and eval steps A10.
+diverse decoding and int8 caches are ROADMAP A12a, the train and eval steps A10.
 """
 
 from __future__ import annotations
@@ -84,9 +84,9 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
         raise NotImplementedError(
             f"sample_method={decode_cfg.sample_method!r}, beam_size={beam}, "
             f"group_size={groups}: only beam search (beam_size > 1, group_size 1) "
-            "is ported; greedy, sampled and diverse decoding are ROADMAP A12")
+            "is ported; greedy, sampled and diverse decoding are ROADMAP A12a")
     if str(getattr(decode_cfg, "kv_cache_dtype", "") or ""):
-        raise NotImplementedError("kv_cache_dtype='int8' is ROADMAP A12")
+        raise NotImplementedError("kv_cache_dtype='int8' is ROADMAP A12a")
     sample_n = max(int(getattr(decode_cfg, "sample_n", 1)), 1)
     if sample_n not in (1, beam):
         raise ValueError(f"sample_n={sample_n} with beam_size={beam}: on the beam path "

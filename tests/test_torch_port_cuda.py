@@ -463,3 +463,70 @@ class TestBeamLoopGraphs:
         steps = _LOOP_SCHEDULE[-1]
         assert (lineage_attention.launches, fused_logit_topk.launches) == (3 * steps, steps)
         assert set(loop._ledger.per_graph.values()) == {(3, 1)}
+
+
+class TestEvalPath:
+    """The ``test`` task's pieces on the card: the CheXbert labeler and
+    ``FinetuneTrainer.evaluate``."""
+
+    def test_chexbert_labeler_card_equals_cpu(self, cuda_device):
+        """BERT-base width (12 x 768, 12 heads, 3072, 30522 words), seeded
+        weights, float32 with TF32 off: logits within 1e-4 (two devices sum
+        12 layers of float32 products in other orders), labels equal."""
+        from evoke_tpu_torch.evals.chexbert import ChexbertLabeler
+        from evoke_tpu_torch.params import init_params_
+
+        cpu = init_params_(ChexbertLabeler().eval(), 0)
+        card = ChexbertLabeler().to(cuda_device).eval()
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(0)
+        ids = rng.integers(1000, 30522, size=(4, 96)).astype(np.int32)
+        ids[:, 0] = 101
+        mask = np.ones_like(ids)
+        mask[1, 60:] = 0
+        ids[1, 60:] = 0
+        with torch.inference_mode():
+            want = torch.cat(cpu(torch.as_tensor(ids), torch.as_tensor(mask)), 1)
+            got = torch.cat(card(torch.as_tensor(ids, device=cuda_device),
+                                 torch.as_tensor(mask, device=cuda_device)), 1).cpu()
+        assert (got - want).abs().max().item() <= 1e-4
+        bounds = list(range(0, 53, 4)) + [54]
+        for a, b in zip(bounds, bounds[1:]):
+            assert torch.equal(got[:, a:b].argmax(1), want[:, a:b].argmax(1))
+
+    def test_evaluate_captured_equals_eager(self, cuda_device, tmp_path):
+        """The eval path's decode steps replayed from CUDA graphs write the same
+        test_prediction.csv as the same steps run eagerly (float32, toy
+        dimensions, NLG metrics)."""
+        from evoke_tpu_torch import cli
+        from evoke_tpu_torch.core.config import load_config
+        from evoke_tpu_torch.data.datasets import load_annotation
+        from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
+        from evoke_tpu_torch.data.tokenizer import build_tokenizer
+        from evoke_tpu_torch.params import init_params_
+        from evoke_tpu_torch.train.trainer import Tester
+
+        root = str(tmp_path)
+        ann = write_synthetic_dataset(root, n_train=4, n_val=0, n_test=9, image_size=32, seed=2)
+        argv = ["--data.ann_path", ann, "--data.image_dir", root, "--data.tokenizer_dir",
+                f"{root}/tok", "--trainer.result_dir", f"{root}/res", "--data.batch_size", "4",
+                "--data.max_seq_len", "24", "--model.image_size", "32",
+                "--model.encoder_num_hidden_layers", "1", "--model.num_layers", "2"]
+        out = {}
+        for graphs in (None, False):
+            cfg = load_config(None, overrides={"trainer.task": "test"},
+                              argv=argv + ["--trainer.version", f"g{graphs}"])
+            tok = build_tokenizer(cfg.data.tokenizer_dir, cfg.data.data_name, ann_path=ann)
+            cfg.vocab_size = tok.get_vocab_size()
+            model = init_params_(cli.build_model(cfg, cfg.vocab_size, cuda_device), 0).eval()
+            tester = Tester(cfg, model, tok, eval_loaders={
+                "test": cli.build_loaders(cfg, tok, load_annotation(ann))},
+                metrics_fn=cli.metrics_fn_for(cfg, cuda_device), device=cuda_device,
+                graphs=graphs)
+            tester.test()
+            loops = [loop for g in (tester.gen_inc, tester.gen_noinc)
+                     for loop, _ in g.loops.values()]
+            assert loops and all(loop.graphs == (graphs is None) for loop in loops)
+            with open(f"{cfg.result_dir}/test_prediction.csv") as f:
+                out[graphs] = f.read()
+        assert out[None] == out[False] and out[None].count("\n") == 1 + 7 + 9
