@@ -42,7 +42,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    (reorder caches, plain vocab tail). Captured and eager must give the same
    tokens and the same scores, bit for bit (same kernels, same order); the
    best beams of the serving and eval paths must agree (float32: the attended
-   sets are identical). Then an early-stop check: a full-width one-layer
+   sets are identical); the continuous engine (2 slots, captured) decodes
+   the same two studies and its best beams must agree with the serving path's
+   (token agreement printed, at least 0.9). Then an early-stop check: a full-width one-layer
    float32 R2Gen decoder (64 samples x beam 3, serving schedule, 'wu_0.8')
    whose EOS logit bias is raised at step 15, so every beam finishes in the
    second cache phase; captured and eager must agree in tokens and scores,
@@ -69,7 +71,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    32 + 32 aux, uint8 images) over a synthetic dataset written to a temporary
    directory with a 30000-word tokenizer, decode steps captured; one
    non-empty report per test study, K1:K2 launches 3:1, reports/s with and
-   without the capture time;
+   without the capture time; then the same CLI with ``--decode.engine
+   continuous`` (its defaults: 64 slots, 10 x 4 steps a dispatch, 4 loader
+   batches a pack) under the same checks;
 7. the test CLI in-process over phase 6's dataset and configuration, with a
    BERT-base-width CheXbert checkpoint written to the temporary directory
    (HF key names, 'module.' prefix, seeded weights, a 30522-entry vocab):
@@ -83,7 +87,23 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    wall with and without the capture, decode reports/s, the host seconds
    in compute_nlg_scores, CheXbert's device seconds (CUDA events) and
    reports/s, and peak GiB, beside the card's name and power limit;
-8. a JSON line of every ported kernel, then the result line.
+8. the continuous engine at full width: phase 4's flagship (bf16, beam 3,
+   suppress_unk) serves 512 studies (8 loader batches of 64, with
+   indication) with 64 slots, 10 steps a segment, 4 segments a dispatch, 4
+   loader batches a pack, on a forced length mix (a lognormal of median 55
+   and sigma 0.45, rounded and clipped to [15, 100], numpy seed 7) through
+   the engine's ``topk_wrapper``; captured, then eager, then captured again;
+   then the same studies through the batch ReportServer (depth 2, captured,
+   warmed on one batch) forced by ``topk_hook``. Every study's forced length
+   must be honoured by both engines, the captured and eager runs must agree
+   in every report, and K1 must launch 3 times K2 (> 0) in every run. Prints,
+   per engine and run: reports/s, decode steps issued, study latency p50 /
+   p90, service latency p50, capture seconds and peak GiB, beside the card's
+   name and power limit; for the continuous engine reports/s both to its last
+   read (the JAX engine's window) and with the drain of the dispatches still
+   queued then, and the two engines' ratio with all issued work counted;
+9. a JSON line of every ported kernel (launches: phase 4's captured run),
+   then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -536,28 +556,31 @@ def write_cli_dataset(root, seed):
     return ann, tok_dir, has_ind, no_ind
 
 
-def serve_cli(root, ann, tok_dir, has_ind, no_ind):
+def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
     """The serve CLI in-process at full width over the synthetic dataset:
-    every CLI default but bf16. Returns the phase's numbers."""
+    every CLI default but bf16 (and ``--decode.engine``). Returns the phase's
+    numbers."""
     import contextlib
     import csv
     import io
     import os
 
     from evoke_tpu_torch import cli, serve
+    from evoke_tpu_torch.decode import continuous
     from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
     from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
     from evoke_tpu_torch.ops.lineage_attention import lineage_attention
 
     stats = []
-    serve_fn = serve.ReportServer.serve
+    cls = continuous.ContinuousServer if engine == "continuous" else serve.ReportServer
+    serve_fn = cls.serve
 
     def recording_serve(self, *a, **kw):
         out = serve_fn(self, *a, **kw)
         stats.append(dict(self.stats))
         return out
 
-    serve.ReportServer.serve = recording_serve
+    cls.serve = recording_serve
     buf = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     lineage_attention.launches = 0
@@ -569,10 +592,11 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind):
             rc = cli.main(["serve", "--data.ann_path", ann, "--data.image_dir", root,
                            "--data.tokenizer_dir", tok_dir,
                            "--trainer.result_dir", os.path.join(root, "results"),
-                           "--model.dtype", "bfloat16"])
+                           "--model.dtype", "bfloat16", "--decode.engine", engine,
+                           "--trainer.version", engine])
         torch.cuda.synchronize()
     finally:
-        serve.ReportServer.serve = serve_fn
+        cls.serve = serve_fn
     wall = time.perf_counter() - t0
     n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
     n_k3 = masked_cross_view_attention.launches
@@ -582,7 +606,7 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind):
     if rc != 0:
         raise AssertionError(f"cli serve returned {rc}")
     summary = json.loads(printed[-1])
-    csv_path = os.path.join(root, "results", "mimic_cxr", "serve", "v1",
+    csv_path = os.path.join(root, "results", "mimic_cxr", "serve", engine,
                             "serve_prediction.csv")
     with open(csv_path, newline="") as f:
         rows = list(csv.reader(f))
@@ -595,23 +619,39 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind):
     if n_k2 <= 0 or n_k1 != 3 * n_k2:
         raise AssertionError(f"cli launch counts: lineage {n_k1}, fused {n_k2} "
                              "(want 3:1, > 0)")
-    p50 = [s["batch_latency_p50_s"] for s in stats]
     capture_s = sum(s["capture_s"] for s in stats)
     if capture_s <= 0:
-        raise AssertionError("cli serve: the decode steps were not captured")
+        raise AssertionError(f"cli serve ({engine}): the decode steps were not captured")
     served_s = sum(s["wall_s"] for s in stats) - capture_s
-    out = dict(reports=summary["reports"], reports_per_s=summary["reports_per_s"],
+    out = dict(engine=engine, reports=summary["reports"], reports_per_s=summary["reports_per_s"],
                capture_s=capture_s, reports_per_s_without_capture=summary["reports"] / served_s,
-               serve_wall_s=summary["wall_s"], batch_latency_p50_s=p50,
-               batches=[s["batches"] for s in stats], peak_mem_gib=peak_gib,
+               serve_wall_s=summary["wall_s"], peak_mem_gib=peak_gib,
                cli_wall_s=wall, launches_lineage=n_k1, launches_fused=n_k2,
                launches_fusion_attention=n_k3)
-    log(f"cli serve: {summary['reports']} reports, reports_per_s="
+    if engine == "continuous":
+        # the batch engine's wall covers all the work it issued; count the
+        # speculative dispatches the card runs after the last read too
+        drained_s = served_s + sum(s["drain_s"] for s in stats)
+        out.update(study_p50_ms=[s["study_p50_ms"] for s in stats],
+                   segment_steps=[s["segment_steps"] for s in stats],
+                   issued_steps=[s["issued_steps"] for s in stats],
+                   drain_s=[s["drain_s"] for s in stats],
+                   drained_reports_per_s_without_capture=summary["reports"] / drained_s)
+        latency = f"study_p50_ms={[round(x, 1) for x in out['study_p50_ms']]}, decode steps " \
+                  f"consumed {out['segment_steps']} issued {out['issued_steps']}; " \
+                  f"{out['drained_reports_per_s_without_capture']:.3f} reports/s without the " \
+                  f"capture with the drain of {[round(x, 3) for x in out['drain_s']]} s"
+        what = f"{len(stats)} serve() calls of one server"
+    else:
+        out.update(batch_latency_p50_s=[s["batch_latency_p50_s"] for s in stats],
+                   batches=[s["batches"] for s in stats])
+        latency = f"batch_latency_p50_s={[round(x, 4) for x in out['batch_latency_p50_s']]}"
+        what = f"{len(stats)} loops"
+    log(f"cli serve --decode.engine {engine}: {summary['reports']} reports, reports_per_s="
         f"{summary['reports_per_s']} with the capture of the decode steps "
-        f"({capture_s:.2f}s for {len(stats)} loops), "
+        f"({capture_s:.2f}s, {what}), "
         f"{out['reports_per_s_without_capture']:.3f} without (serve wall "
-        f"{summary['wall_s']} s; with/without "
-        f"indication batch_latency_p50_s={[round(x, 4) for x in p50]}), cli wall "
+        f"{summary['wall_s']} s; with/without indication {latency}), cli wall "
         f"{wall:.1f}s, peak_mem_gib={peak_gib:.2f}, launches lineage={n_k1} fused={n_k2} "
         f"fusion_attention={n_k3}")
     return out
@@ -855,15 +895,15 @@ def test_cli(root, ann, tok_dir, has_ind, no_ind, smi, seed):
     return out
 
 
-def profile_serving(server, batches, top=15):
-    """One served batch under torch.profiler: device busy share of the window
-    (sum of kernel times over wall time; the profiler's own host cost lengthens
-    the wall) and the kernels with the most device time."""
+def profile_serving(run, what="1 batch", top=15):
+    """``run()`` (a server serving) under torch.profiler: device busy share of
+    the window (sum of kernel times over wall time; the profiler's own host
+    cost lengthens the wall) and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.serve(batches, with_indication=True)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.key_averages()
@@ -880,9 +920,9 @@ def profile_serving(server, batches, top=15):
         out["ported"][frag] = {"count": sum(e.count for e in hits),
                                "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
         if out["ported"][frag]["count"] <= 0:
-            raise AssertionError(f"profile: no launch of a kernel named *{frag}* in the "
-                                 "served batch")
-    log(f"profile (1 batch): wall_ms={out['wall_ms']:.1f} device_busy_ms="
+            raise AssertionError(f"profile: no launch of a kernel named *{frag}* in "
+                                 f"{what}")
+    log(f"profile ({what}): wall_ms={out['wall_ms']:.1f} device_busy_ms="
         f"{out['device_busy_ms']:.1f} busy_share={out['busy_share']:.3f} "
         f"kernel_launches={out['kernel_launches']}")
     for t in out["top"]:
@@ -1077,19 +1117,144 @@ def main_path(model, tok, cfg, batches, dev, with_profile):
             f"{steps} steps (median of 3 batches)")
         runs.append(run)
         if with_profile and i == 2:
-            profile = profile_serving(server, batches[:1])
+            profile = profile_serving(lambda: server.serve(batches[:1], with_indication=True))
     return runs, set_up, step_wall, profile
 
 
-def synthetic_tokenizer(vocab_size=30000):
-    from evoke_tpu_torch.data.tokenizer import SPECIAL_TOKENS, WordTokenizer
+def spelled_tokens(records, max_len, pad_id):
+    """[studies, max_len] ids of spelled-id reports, PAD after EOS."""
+    out = np.full((len(records), max_len), pad_id, np.int64)
+    for i, r in enumerate(records):
+        ids = [int(x) for x in r["report"].split()]
+        out[i, :len(ids)] = ids
+    return out
 
-    vocab = {t: i for i, t in enumerate(SPECIAL_TOKENS)}
-    for i in range(vocab_size - len(vocab) - 2):   # [BOS], [EOS] are appended
-        vocab[f"w{i}"] = len(vocab)
-    tok = WordTokenizer(vocab)
-    assert tok.get_vocab_size() == vocab_size
-    return tok
+
+# the forced length mix of the engines' A/B: MIMIC-like report lengths
+FORCED_MEDIAN, FORCED_SIGMA, FORCED_CLIP, FORCED_SEED = 55.0, 0.45, (15, 100), 7
+
+
+def forced_lengths(n):
+    lo, hi = FORCED_CLIP
+    return np.clip(np.round(np.random.default_rng(FORCED_SEED).lognormal(
+        np.log(FORCED_MEDIAN), FORCED_SIGMA, n)), lo, hi).astype(np.int32)
+
+
+def continuous_engine(model, cfg, vocab, dev, seed, smi, with_profile=False):
+    """Phase 8: the continuous engine against the batch engine on the forced
+    length mix at full width. ``with_profile``: the warm captured engine serves
+    the first 2 loader batches once more under torch.profiler. Returns the
+    phase's numbers."""
+    import gc
+
+    from evoke_tpu_torch.decode.continuous import ContinuousServer
+    from evoke_tpu_torch.decode.forcing import force_topk, synthetic_tokenizer
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.serve import ReportServer
+
+    tok = synthetic_tokenizer(vocab, spell_ids=True)
+    eos, beam, slots, n_batches, width = tok.eos_id, cfg.beam_size, 64, 8, 64
+    lengths = forced_lengths(n_batches * width).reshape(n_batches, width)
+    rng = np.random.default_rng(seed + 8)
+    batches = []
+    for i in range(n_batches):
+        bt = example_batch(rng, width, width, 224, 100, vocab)
+        bt["_image_ids"] = [f"c{i}_s{j}" for j in range(width)]
+        bt["_aux"] = bt["target_len"] = lengths[i]     # engine: host aux; batch: hook's batch
+        batches.append(bt)
+    want = {iid: int(n) for bt in batches for iid, n in zip(bt["_image_ids"], bt["_aux"])}
+
+    def honoured(records):
+        return {r["id"]: len(r["report"].split()) for r in records} == want
+
+    def wrapper(vals, idx, lse, age_rows, aux):
+        return force_topk(vals, idx, age_rows, aux.repeat_interleave(beam), eos)
+
+    def hook(vals, idx, lse, tok_ids, pos, batch):
+        return force_topk(vals, idx, torch.full(vals.shape[:1], pos, device=vals.device),
+                          batch["target_len"].repeat_interleave(beam), eos)
+
+    def counted(run):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lineage_attention.launches = fused_logit_topk.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        n_k1, n_k2 = lineage_attention.launches, fused_logit_topk.launches
+        if n_k2 <= 0 or n_k1 != 3 * n_k2:
+            raise AssertionError(f"phase 8 launch counts: lineage {n_k1}, fused {n_k2} "
+                                 "(want 3:1, > 0)")
+        return out, dict(launches_lineage=n_k1, launches_fused=n_k2,
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    runs, servers, reports, profile = [], {}, {}, None
+    for mode in ("captured", "eager", "captured"):
+        if mode not in servers:
+            servers[mode] = ContinuousServer(
+                model, tok, max_seq_len=100, slots=slots, beam_size=beam, seg_steps=10,
+                dispatch_segs=4, pack_batches=4, suppress_unk=True, topk_wrapper=wrapper,
+                device=dev, graphs=None if mode == "captured" else False)
+        srv = servers[mode]
+        (recs, st), counts = counted(lambda: srv.serve(batches))
+        if not honoured(recs):
+            raise AssertionError(f"continuous {mode}: a forced length was not honoured")
+        if srv.loop.graphs != (mode == "captured"):
+            raise AssertionError(f"continuous {mode}: loop graphs={srv.loop.graphs}")
+        run = dict(st, engine="continuous", mode=mode, steps_issued=srv.loop.steps_run,
+                   **counts)
+        if reports and reports != {r["id"]: r["report"] for r in recs}:
+            raise AssertionError(f"continuous {mode}: reports differ from the first run's")
+        reports = {r["id"]: r["report"] for r in recs}
+        runs.append(run)
+        log(f"engines [{smi}] continuous {mode}: {len(recs)} reports, reports_per_s="
+            f"{st['reports_per_s']:.2f} to the last read, {st['drained_reports_per_s']:.2f} "
+            f"with the drain ({st['drain_s']:.3f}s after it), decode steps issued "
+            f"{run['steps_issued']} (consumed {st['segment_steps']:.0f}), study latency p50 "
+            f"{st['study_p50_ms']:.1f} / p90 {st['study_p90_ms']:.1f} ms, service p50 "
+            f"{st['service_p50_ms']:.1f} ms, capture {st['capture_s']:.2f}s, wall {st['wall_s']:.3f}s (encode {st['encode_s']:.3f}, "
+            f"dispatch {st['dispatch_s']:.3f}, wait {st['wait_s']:.3f}), peak_mem_gib="
+            f"{counts['peak_mem_gib']:.2f}, launches lineage={counts['launches_lineage']} "
+            f"fused={counts['launches_fused']}")
+        if with_profile and len(runs) == 3:
+            profile = profile_serving(lambda: srv.serve(batches[:2]),
+                                      "continuous engine, 128 studies")
+    del servers
+    bsrv = ReportServer(model, tok, cfg, max_seq_len=100, depth=2, device=dev, topk_hook=hook)
+    t0 = time.perf_counter()
+    bsrv.serve(batches[:1], with_indication=True)
+    torch.cuda.synchronize()
+    warm_s, capture_s = time.perf_counter() - t0, bsrv.stats["capture_s"]
+    recs, counts = counted(lambda: bsrv.serve(batches, with_indication=True))
+    if not honoured(recs):
+        raise AssertionError("batch engine: a forced length was not honoured")
+    st = bsrv.stats
+    run = dict(st, engine="batch", mode="captured", steps_issued=counts["launches_fused"],
+               warm_up_s=warm_s, warm_up_capture_s=capture_s, **counts)
+    runs.append(run)
+    mean_len = float(lengths.mean())
+    warm = runs[2]
+    log(f"engines [{smi}] continuous captured warm / batch captured, all issued work counted: "
+        f"{warm['drained_reports_per_s']:.2f} / {st['reports_per_s']:.2f} reports/s = "
+        f"{warm['drained_reports_per_s'] / st['reports_per_s']:.3f}x ({warm['steps_issued']} / "
+        f"{run['steps_issued']} steps issued); to the continuous engine's last read "
+        f"{warm['reports_per_s'] / st['reports_per_s']:.3f}x")
+    log(f"engines [{smi}] batch captured (warmed on one batch, capture {capture_s:.2f}s): "
+        f"{len(recs)} reports, reports_per_s={st['reports_per_s']:.2f}, decode steps issued "
+        f"{run['steps_issued']} ({run['steps_issued'] / n_batches:.1f} a batch of {width}), "
+        f"study latency = batch latency p50 {st['batch_latency_p50_s'] * 1e3:.1f} / p90 "
+        f"{st['batch_latency_p90_s'] * 1e3:.1f} ms, service p50 = study (no admission queue), "
+        f"capture 0.00s in this run, peak_mem_gib={counts['peak_mem_gib']:.2f}, launches "
+        f"lineage={counts['launches_lineage']} fused={counts['launches_fused']}")
+    log(f"engines: forced mix {n_batches * width} studies, mean length {mean_len:.2f}, max "
+        f"{int(lengths.max())}, {int((lengths == FORCED_CLIP[1]).sum())} at the cap; sum of "
+        f"lengths / slots = {lengths.sum() / slots:.1f} steps; batch max lengths "
+        f"{[int(x) for x in lengths.max(1)]}")
+    del bsrv
+    torch.cuda.empty_cache()
+    return dict(runs=runs, mean_length=mean_len, lengths_sum=int(lengths.sum()),
+                batch_max_lengths=[int(x) for x in lengths.max(1)], profile=profile)
 
 
 def flagship(vocab_size, dtype, dev, seed):
@@ -1124,7 +1289,8 @@ def main():
     ap.add_argument("--out", default="", help="also write the results as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, serve one more batch under torch.profiler "
-                         "and print device busy share, the top kernels and each "
+                         "(and in phase 8 two loader batches through the continuous "
+                         "engine) and print device busy share, the top kernels and each "
                          "hand-written kernel's total")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1133,6 +1299,8 @@ def main():
         sys.exit(2)
 
     from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.decode.continuous import ContinuousServer
+    from evoke_tpu_torch.decode.forcing import synthetic_tokenizer
     from evoke_tpu_torch.ops import _build
     from evoke_tpu_torch.ops.lineage_attention import launch_plan as lineage_plan
     from evoke_tpu_torch.train.steps import make_generate_step
@@ -1220,8 +1388,8 @@ def main():
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     model32 = flagship(vocab, torch.float32, dev, args.seed)
-    small = {k: torch.as_tensor(v).to(dev) for k, v in
-             example_batch(rng, 2, 2, 224, 100, vocab).items()}
+    small_np = example_batch(rng, 2, 2, 224, 100, vocab)
+    small = {k: torch.as_tensor(v).to(dev) for k, v in small_np.items()}
     serve_gen, eager_gen = (
         make_generate_step(model32, tok, cfg, 100, with_indication=True, serving=True,
                            device=dev, graphs=graphs) for graphs in (None, False))
@@ -1232,6 +1400,15 @@ def main():
     s_kern = serve_gen(small).cpu().numpy()
     s_eager = eager_gen(small).cpu().numpy()
     s_plain = eval_gen(small).cpu().numpy()
+    cont = ContinuousServer(model32, synthetic_tokenizer(vocab, spell_ids=True), max_seq_len=100,
+                            slots=2, beam_size=3, suppress_unk=True, device=dev)
+    c_recs, _ = cont.serve([dict(small_np, _image_ids=["a", "b"])])
+    s_cont = spelled_tokens(c_recs, 100, tok.pad_id)
+    agree_cont = float((s_cont == s_kern).mean())
+    if not (cont.loop.graphs and cont.ancestor_kv and cont.fused_topk):
+        raise AssertionError("phase 3: the continuous engine did not capture its loop, or "
+                             "left the kernels' route")
+    del cont
     cap_loop, eag_loop = only_loop(serve_gen), only_loop(eager_gen)
     if not (cap_loop.graphs and only_loop(eval_gen).graphs and not eag_loop.graphs):
         raise AssertionError("phase 3: the default generate step did not capture its loop, "
@@ -1242,11 +1419,14 @@ def main():
     log(f"reference check (float32, 2 studies): captured vs eager serving path tokens "
         f"equal {same_tok}, scores equal {same_score} (capture {cap_loop.capture_s:.2f}s, "
         f"eval path {only_loop(eval_gen).capture_s:.2f}s); kernels vs reorder + plain tail: "
-        f"token agreement {agree:.4f}, {time.perf_counter() - t0:.1f}s")
+        f"token agreement {agree:.4f}; continuous engine (2 slots, ring caches) vs the "
+        f"serving path: token agreement {agree_cont:.4f}; {time.perf_counter() - t0:.1f}s")
     if not (same_tok and same_score):
         raise AssertionError("the captured loop disagrees with the eager loop at float32")
     if agree < 0.9:
         raise AssertionError(f"serving path disagrees with the eval path: {agree}")
+    if agree_cont < 0.9:
+        raise AssertionError(f"continuous engine disagrees with the serving path: {agree_cont}")
     del model32, serve_gen, eager_gen, eval_gen, cap_loop, eag_loop
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1278,9 +1458,18 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         data = write_cli_dataset(root, args.seed)
         cli_res = serve_cli(root, *data)
+        cli_cont = serve_cli(root, *data, engine="continuous")
         t0 = time.perf_counter()
         test_res = test_cli(root, *data, smi, args.seed)
         log(f"test cli phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 8: the continuous engine against the batch engine, forced lengths ----
+    t0 = time.perf_counter()
+    model = flagship(vocab, torch.bfloat16, dev, args.seed)
+    engines = continuous_engine(model, cfg, vocab, dev, args.seed, smi, args.profile)
+    del model
+    torch.cuda.empty_cache()
+    log(f"continuous engine phase {time.perf_counter() - t0:.1f}s")
 
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
@@ -1311,7 +1500,8 @@ def main():
             "fusion_attention": {f"{str(k[0])[6:]}_Q{k[1]}": v for k, v in k3.items()},
             "fusion_attention_ptxas": k3_ptxas,
             "fusion_module": dict(fusion_errs, launches_fusion_attention=n_k3),
-            "cli_serve": cli_res, "cli_test": test_res,
+            "cli_serve": cli_res, "cli_serve_continuous": cli_cont, "cli_test": test_res,
+            "engines": engines, "continuous_token_agreement": agree_cont,
             "main_path": dict(st, reference_token_agreement=agree),
             "main_path_runs": runs, "main_path_set_up": set_up,
             "decode_step_wall_ms": step_wall, "early_stop": early,

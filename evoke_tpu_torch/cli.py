@@ -16,8 +16,10 @@ Ported:
 - ``score``: the NLG metrics of a predictions file (``--data.ann_path``: a
   ``test_prediction.csv`` or JSON ``{"gts": {id: text}, "res": {id: text}}``)
   as JSON on stdout; runs on the host;
-- ``serve`` with the batch engine (pipelined beam decode over the test split,
-  ``serve_prediction.csv`` and a JSON throughput summary).
+- ``serve`` (streaming beam decode over the test split,
+  ``serve_prediction.csv`` and a JSON throughput summary) with either engine:
+  ``--decode.engine batch`` (the default: pipelined batches) or
+  ``continuous`` (slots refilled mid-stream, ``decode/continuous.py``).
 
 The other tasks raise NotImplementedError naming their ROADMAP item.
 """
@@ -119,10 +121,12 @@ def _check_heatmaps(cfg) -> None:
                                   "ROADMAP A12b")
 
 
+ENGINES = ("batch", "continuous")
+
+
 def _check_serve_config(cfg) -> None:
-    if cfg.decode.engine != "batch":
-        raise NotImplementedError(f"decode.engine={cfg.decode.engine!r}: only the batch "
-                                  "engine is ported (continuous serving is ROADMAP A9)")
+    if cfg.decode.engine not in ENGINES:
+        raise ValueError(f"decode.engine={cfg.decode.engine!r}: one of {ENGINES}")
     if cfg.decode.serve_dp:
         raise NotImplementedError(f"decode.serve_dp={cfg.decode.serve_dp}: multi-GPU "
                                   "serving is ROADMAP A13")
@@ -188,20 +192,38 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
-    """Streaming inference over the test split: pipelined beam decode,
-    predictions CSV and a throughput summary (no metric scoring)."""
-    from evoke_tpu_torch.serve import ReportServer
-
+    """Streaming inference over the test split: pipelined beam decode by the
+    batch or the continuous engine, predictions CSV and a throughput summary
+    (no metric scoring)."""
     records: List[Dict] = []
     stats: List[Dict[str, float]] = []
-    server = ReportServer(model, tokenizer, cfg.decode, max_seq_len=cfg.data.max_seq_len,
-                          device=device)
     inc, no = test_loaders
-    for loader, with_ind in ((inc, True), (no, False)):
-        if loader is None:
-            continue
-        records.extend(server.serve(loader, with_indication=with_ind))
-        stats.append(dict(server.stats))
+    if cfg.decode.engine == "continuous":
+        from evoke_tpu_torch.decode.continuous import ContinuousServer
+
+        d = cfg.decode
+        server = ContinuousServer(
+            model, tokenizer, max_seq_len=cfg.data.max_seq_len, slots=d.slots,
+            beam_size=d.beam_size, seg_steps=d.seg_steps, dispatch_segs=d.dispatch_segs,
+            pack_batches=d.pack_batches, suppress_unk=d.suppress_unk,
+            length_penalty=d.length_penalty, beam_kv=d.beam_kv,
+            kv_cache_dtype=d.kv_cache_dtype, device=device)
+        for loader in (inc, no):
+            if loader is None:
+                continue
+            recs, st = server.serve(loader, prefetch=cfg.data.prefetch)
+            records.extend(recs)
+            stats.append(st)
+    else:
+        from evoke_tpu_torch.serve import ReportServer
+
+        server = ReportServer(model, tokenizer, cfg.decode, max_seq_len=cfg.data.max_seq_len,
+                              device=device)
+        for loader, with_ind in ((inc, True), (no, False)):
+            if loader is None:
+                continue
+            records.extend(server.serve(loader, with_indication=with_ind))
+            stats.append(dict(server.stats))
     os.makedirs(cfg.result_dir, exist_ok=True)
     out_path = os.path.join(cfg.result_dir, "serve_prediction.csv")
     with open(out_path, "w", newline="") as f:

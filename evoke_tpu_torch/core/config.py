@@ -8,7 +8,7 @@ only when a YAML file is given.
 
 Fields the port does not run yet are kept so configs and argv stay
 interchangeable; the code that reads them raises ``NotImplementedError``
-naming its ROADMAP item (e.g. ``decode.engine=continuous``, A9).
+naming its ROADMAP item (e.g. ``decode.serve_dp``, A13).
 """
 
 from __future__ import annotations
@@ -80,8 +80,10 @@ class DecodeConfig:
     """Report generation (reference: config/finetune_config.yaml:49-66).
 
     The port runs ``sample_method="beam_search"`` with ``group_size=1``; every
-    other decode setting raises NotImplementedError (ROADMAP A12a). The
-    continuous-engine fields are read by nothing yet (ROADMAP A9)."""
+    other decode setting raises NotImplementedError (ROADMAP A12a). ``engine``
+    picks the serve task's engine; ``slots``, ``seg_steps``, ``dispatch_segs``
+    and ``pack_batches`` configure the continuous one
+    (decode/continuous.ContinuousServer)."""
 
     sample_method: str = "beam_search"
     beam_size: int = 3
@@ -100,7 +102,7 @@ class DecodeConfig:
     cache_phases: int = 0
     beam_kv: str = "auto"                        # auto | reorder | ancestor
     kv_cache_dtype: str = ""                     # "" only (int8: ROADMAP A12a)
-    engine: str = "batch"                        # batch (continuous: ROADMAP A9)
+    engine: str = "batch"                        # batch | continuous
     slots: int = 64
     seg_steps: int = 10
     dispatch_segs: int = 4

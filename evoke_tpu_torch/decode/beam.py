@@ -73,6 +73,36 @@ def _leaves(x) -> List[torch.Tensor]:
     return [x]
 
 
+def advance_state(st, new_state, beam_idx, row0, pos: int, ancestor_kv: bool) -> None:
+    """Write a step's new decode state into the buffers ``st``, rows
+    reindexed by ``beam_idx`` [B, k] (``row0`` [B, 1]: each sample's first
+    row). 'cross*' entries stay beam-invariant. In ancestor mode the caches
+    stay un-permuted too and the lineage advances instead: new beam b of
+    sample s descends from physical row beam_idx[s, b], so its history is that
+    row's and its entry at cache slot ``pos`` (the step position, or the
+    physical ring slot of the continuous engine) IS that row."""
+    n = beam_idx.numel()
+    flat_idx = (beam_idx + row0).reshape(-1)
+
+    def follow_beams(dst, src):
+        rows = src.dim() >= 1 and src.shape[0] == n
+        return dst.copy_(src.index_select(0, flat_idx) if rows else src)
+
+    def stay(dst, src):   # a step that wrote the buffer itself returns it
+        return dst if dst is src else dst.copy_(src)
+
+    for key, buf in st.items():
+        if key.startswith("cross"):
+            continue
+        if key == "anc":
+            a = buf.gather(1, beam_idx[:, :, None].expand(-1, -1, buf.shape[2]))
+            a[:, :, pos] = beam_idx.to(a.dtype)
+            buf.copy_(a)
+        else:
+            unpermuted = ancestor_kv and key in ("cache_k", "cache_v")
+            _tree_map(stay if unpermuted else follow_beams, buf, new_state[key])
+
+
 def _validate_schedule(schedule: Tuple[int, ...], max_len: int) -> Tuple[int, ...]:
     schedule = tuple(schedule)
     if not (schedule and schedule[-1] == max_len
@@ -107,6 +137,29 @@ class LaunchLedger:
     def replayed(self, key) -> None:
         for w, n in zip(self.wrappers, self.per_graph[key]):
             w.launches += n
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """A capture stream for ``device`` that starts after everything queued so
+    far (the device synchronized first)."""
+    torch.cuda.synchronize(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    return side
+
+
+def capture_graph(ledger: LaunchLedger, key, fn: Callable[[], None], pool,
+                  side: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
+    """``fn`` captured into a new CUDA graph on stream ``side`` in memory pool
+    ``pool``; ``ledger`` notes its kernel launches under ``key``."""
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+            fn()
+
+    ledger.record(key, capture)
+    return graph
 
 
 class BeamLoop:
@@ -244,33 +297,6 @@ class BeamLoop:
         tok_idx = tok_cand.reshape(batch, k * k).long().gather(1, flat_idx)
         return scores, flat_idx // k, tok_idx
 
-    def _advance_state(self, st, new_state, beam_idx, t) -> None:
-        """Write the step's new decode state into the phase's buffers, rows
-        reindexed by ``beam_idx``. 'cross*' entries stay beam-invariant. In
-        ancestor mode the caches stay un-permuted too and the lineage advances
-        instead: new beam b of sample s descends from physical row
-        beam_idx[s, b], so its history is that row's and its slot-``t`` entry
-        IS that row."""
-        flat_idx = (beam_idx + self._row0).reshape(-1)
-
-        def follow_beams(dst, src):
-            rows = src.dim() >= 1 and src.shape[0] == self.n
-            return dst.copy_(src.index_select(0, flat_idx) if rows else src)
-
-        def stay(dst, src):   # a step that wrote the buffer itself returns it
-            return dst if dst is src else dst.copy_(src)
-
-        for key, buf in st.items():
-            if key.startswith("cross"):
-                continue
-            if key == "anc":
-                a = buf.gather(1, beam_idx[:, :, None].expand(-1, -1, buf.shape[2]))
-                a[:, :, t] = beam_idx.to(a.dtype)
-                buf.copy_(a)
-            else:
-                unpermuted = self.ancestor_kv and key in ("cache_k", "cache_v")
-                _tree_map(stay if unpermuted else follow_beams, buf, new_state[key])
-
     def one_step(self, t: int) -> None:
         """Position ``t`` of the search, in place on the loop's buffers."""
         batch, k, n, max_len = self.batch, self.k, self.n, self.max_len
@@ -323,7 +349,7 @@ class BeamLoop:
         seq = self.seq.gather(1, beam_idx[:, :, None].expand(-1, -1, max_len))
         seq[:, :, t] = tok_idx
         self.seq.copy_(seq)
-        self._advance_state(st, new_state, beam_idx, t)
+        advance_state(st, new_state, beam_idx, self._row0, t, self.ancestor_kv)
 
         finished = (tok_idx == self.eos_id) | (t == max_len - 1)
         fin_score = torch.where(finished, self.lp(float(t + 1), scores), NEG_INF)
@@ -342,25 +368,16 @@ class BeamLoop:
         launch at each cache length, the libraries' workspaces and plans), then
         one graph per position, all in one private pool."""
         dev = self.device
-        torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        side = side_stream(dev)
         with torch.cuda.stream(side):
             for i in range(len(self.schedule)):
                 self.one_step(self.schedule[i - 1] if i else 0)
         torch.cuda.current_stream(dev).wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         for t in range(self.max_len):
-            graph = torch.cuda.CUDAGraph()
-
-            def capture(graph=graph, t=t):
-                with torch.cuda.graph(graph, pool=pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self.one_step(t)
-
-            self._ledger.record(t, capture)
-            self._graphs.append(graph)
+            self._graphs.append(capture_graph(self._ledger, t, lambda t=t: self.one_step(t),
+                                              pool, side))
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
 

@@ -7,7 +7,8 @@
   (``decode/beam.BeamLoop`` reads nothing after it), so the next batch's
   encoder is queued behind it.
 - ``ReportServer``: model + tokenizer -> ``serve(loader)`` returning one
-  record per study plus throughput and batch-latency stats.
+  record per study plus throughput and batch-latency stats. The continuous
+  engine's server is ``decode/continuous.ContinuousServer``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,21 @@ def with_host_valid(batches):
         yield b
 
 
+def checked_partners(batches, max_partners):
+    """Pass loader batches (with ``_valid``) through, raising on a batch with
+    an anchor whose same-study partner views exceed ``max_partners`` (grouped
+    fusion attention would silently drop them); None checks nothing."""
+    for b in batches:
+        if max_partners is not None:
+            got = max_partners_in(b["pids"], b["_valid"], np.shape(b["ids"])[0])
+            if got > max_partners:
+                raise ValueError(
+                    f"batch has an anchor with {got} same-study partner views, above "
+                    f"model.fusion_max_partners={max_partners}: grouped fusion attention "
+                    "would silently drop views")
+        yield b
+
+
 class ReportServer:
     """Batched, pipelined report generation over a model holding its weights.
 
@@ -65,10 +81,12 @@ class ReportServer:
     plus host-side ``_image_ids`` and optional ``_gts``."""
 
     def __init__(self, model, tokenizer, decode_cfg, max_seq_len: int = 100,
-                 depth: int = 2, device="cuda", graphs=None):
+                 depth: int = 2, device="cuda", graphs=None, topk_hook=None):
         """``graphs``: None captures the decode steps into CUDA graphs on a CUDA
         device and runs them eagerly on the CPU; False runs them eagerly on
-        either (for an A/B on the card)."""
+        either (for an A/B on the card). ``topk_hook``: the load-testing hook of
+        ``train/steps.make_generate_step`` on the fused tail; it reads the
+        loader batches' device entries (a ``target_len`` [n_anchor], say)."""
         self.tokenizer = tokenizer
         self.depth = depth
         self.device = resolve_device(device)
@@ -78,7 +96,8 @@ class ReportServer:
         self._gen = {
             flag: make_generate_step(model, tokenizer, decode_cfg, max_seq_len,
                                      with_indication=flag, serving=True,
-                                     device=self.device, graphs=graphs)
+                                     device=self.device, graphs=graphs,
+                                     topk_hook=topk_hook)
             for flag in (True, False)}
         self.stats: Dict[str, float] = {}
 
@@ -86,31 +105,21 @@ class ReportServer:
               prefetch: int = 2) -> List[Dict[str, Any]]:
         """Generate a report for every valid study in ``loader``; returns
         records ``{"id", "report", "gt"?}`` in loader order and fills
-        ``self.stats`` (wall-clock throughput, median batch latency, and
+        ``self.stats`` (wall-clock throughput, p50 and p90 batch latency, and
         ``capture_s``: the seconds of ``wall_s`` this call spent capturing the
         decode steps of batch shapes it met for the first time)."""
         gen = self._gen[with_indication]
         captured_before = sum(loop.capture_s for loop, _ in gen.loops.values())
         records: List[Dict[str, Any]] = []
 
-        def checked(batches):
-            for b in with_host_valid(batches):
-                if self._max_partners is not None:
-                    got = max_partners_in(b["pids"], b["valid"], np.shape(b["ids"])[0])
-                    if got > self._max_partners:
-                        raise ValueError(
-                            f"batch has an anchor with {got} same-study partner views, "
-                            f"above model.fusion_max_partners={self._max_partners}: "
-                            "grouped fusion attention would silently drop views")
-                yield b
-
         def stamped(batches):
             for dev, host in batches:
                 host["_t_submit"] = time.perf_counter()
                 yield dev, host
 
-        batches = stamped(device_prefetch(checked(Prefetcher(loader, prefetch)),
-                                          self.device, prefetch))
+        batches = stamped(device_prefetch(
+            checked_partners(with_host_valid(Prefetcher(loader, prefetch)), self._max_partners),
+            self.device, prefetch))
         latencies: List[float] = []
         t0 = time.perf_counter()
         for host, seqs in generate_stream(gen, batches, self.depth):
@@ -133,6 +142,8 @@ class ReportServer:
             "wall_s": wall,
             "reports_per_s": len(records) / wall if wall > 0 else float("nan"),
             "batch_latency_p50_s": statistics.median(latencies) if latencies else float("nan"),
+            "batch_latency_p90_s": (float(np.percentile(latencies, 90)) if latencies
+                                    else float("nan")),
             "capture_s": sum(loop.capture_s for loop, _ in gen.loops.values()) - captured_before,
         }
         return records

@@ -8,6 +8,11 @@ tensors the kernels' plain versions run); eval paths (``serving=False``)
 resolve to reorder caches, one phase and the unfused tail, as in JAX. Only
 the beam path (beam_size > 1, group_size 1) is ported; greedy / sampled /
 diverse decoding and int8 caches are ROADMAP A12a, the train and eval steps A10.
+
+``logits_hook`` / ``topk_hook`` are the load-testing surface of the JAX
+package's ``make_generate_step``: they rewrite each step's candidates (for
+instance to force EOS at per-study target lengths) so that a serving engine
+can be measured on a controlled length mix with random weights.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ def cache_schedule(decode_cfg, max_seq_len: int, serving: bool):
 
 def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
                        with_indication: bool = False, serving: bool = False,
-                       all_samples: bool = False, device="cuda", graphs=None):
+                       all_samples: bool = False, device="cuda", graphs=None,
+                       logits_hook=None, topk_hook=None):
     """-> ``generate_step(batch) -> seqs [n_anchor, L]`` ([n_anchor, beam, L]
     with ``all_samples``). ``batch`` holds tensors on ``device``: images
     [B, H, W, 3] (uint8 or normalised float), ids [n_anchor, T] (its first
@@ -75,7 +81,17 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     while the card still runs the batch's last cache phase; ``seqs`` is a new
     tensor, queued on the current stream before any later batch's copies into
     the loop's buffers. ``graphs=False`` runs the same steps eagerly (the
-    CPU's path; on the card for an A/B)."""
+    CPU's path; on the card for an A/B).
+
+    ``logits_hook(logits, tok, pos, batch) -> logits`` rewrites each step's
+    raw [N, V] logits before the top-k; it needs the full logits, so it
+    forces the unfused tail. ``topk_hook(vals, idx, lse, tok, pos, batch) ->
+    (vals, idx)`` rewrites the fused tail's [N, k] candidates instead and
+    keeps the fused tail; given both, the fused tail uses ``topk_hook`` and
+    ignores ``logits_hook`` (callers pass equivalent forcings). ``pos`` is the
+    step (a Python number); ``batch`` holds every entry of the batch but
+    ``images``, in buffers of the loop that each batch is copied into, so a
+    hook reads the current batch's values under replay too."""
     device = resolve_device(device)
     beam = int(decode_cfg.beam_size)
     groups = max(int(decode_cfg.group_size), 1)
@@ -98,31 +114,45 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     suppress = (tokenizer.unk_id,) if decode_cfg.suppress_unk else ()
     schedule = cache_schedule(decode_cfg, max_seq_len, serving)
     ancestor_kv = resolve_beam_kv(decode_cfg, serving) == "ancestor"
-    fused = use_fused_topk(model, decode_cfg, serving)
+    fused = (use_fused_topk(model, decode_cfg, serving)
+             and (logits_hook is None or topk_hook is not None))
+    hooked = (topk_hook if fused else logits_hook) is not None
 
     decoding_constraint = bool(decode_cfg.decoding_constraint)
-    loops = {}   # batch shape -> (BeamLoop, its attention-mask buffer)
+    loops = {}        # batch shape -> (BeamLoop, its attention-mask buffer)
+    hook_batches = {}  # batch shape -> the hook's batch buffers
 
-    def loop_for(state0, att_mask, b):
+    def loop_for(state0, att_mask, b, hook_batch):
         """The beam loop of this batch shape, built (and on the card captured)
-        at the shape's first batch. Its step reads the attention mask from a
-        buffer of its own, which every later batch's mask is copied into."""
+        at the shape's first batch. Its step reads the attention mask (and a
+        hook its batch) from buffers of its own, which every later batch's
+        values are copied into."""
         key = (b, beam, tuple(att_mask.shape), state0["cross_k"][0].dtype, fused,
-               ancestor_kv, schedule)
+               ancestor_kv, schedule,
+               tuple((name, tuple(v.shape), v.dtype) for name, v in hook_batch.items()))
         if key not in loops:
             mask = att_mask.clone()
+            hook_bufs = {name: v.clone() for name, v in hook_batch.items()}
             step_kw = (dict(return_topk=beam, topk_suppress=suppress) if fused
                        else dict(return_logits=True))
             contract = (dict(fused_topk=True) if fused else
                         dict(suppress_ids=suppress, decoding_constraint=decoding_constraint))
 
             def step(tok, pos, dstate):
-                return model.decode_step(tok, pos, dstate, mask, **step_kw)
+                out, st = model.decode_step(tok, pos, dstate, mask, **step_kw)
+                if fused and topk_hook is not None:
+                    vals, idx, lse = out
+                    vals, idx = topk_hook(vals, idx, lse, tok, pos, hook_bufs)
+                    out = (vals, idx, lse)
+                elif not fused and logits_hook is not None:
+                    out = logits_hook(out, tok, pos, hook_bufs)
+                return out, st
 
+            hook_batches[key] = hook_bufs
             loops[key] = (BeamLoop(step, state0, b, cache_schedule=schedule, raw_logits=True,
                                    ancestor_kv=ancestor_kv, graphs=graphs, **contract,
                                    **common), mask)
-        return loops[key]
+        return loops[key] + (hook_batches[key],)
 
     @torch.inference_mode()
     def generate_step(batch):
@@ -132,8 +162,12 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
         enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
                                                 batch["valid"], b, *inc)
         state0 = model.init_decode_state(enc, b * beam, schedule[0])
-        loop, mask = loop_for(state0, att_mask, b)
+        hook_batch = ({name: v for name, v in batch.items() if name != "images"}
+                      if hooked else {})
+        loop, mask, hook_bufs = loop_for(state0, att_mask, b, hook_batch)
         mask.copy_(att_mask)
+        for name, v in hook_batch.items():
+            hook_bufs[name].copy_(v)
         loop.load(state0)
         res = loop.run()
         return res.seqs if all_samples else res.seqs[:, 0, :]

@@ -212,8 +212,8 @@ def test_cli_help_unknown_and_unported(dataset, capsys):
     assert tcli.main(["frobnicate"]) == 2
     with pytest.raises(NotImplementedError, match="A10"):
         tcli.main(["finetune", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcli.main(["serve", "--device", "cpu", "--decode.engine", "continuous"])
+    with pytest.raises(ValueError, match="decode.engine='frobnicate'"):
+        tcli.main(["serve", "--device", "cpu", "--decode.engine", "frobnicate"])
     with pytest.raises(NotImplementedError, match="A13"):
         tcli.main(["serve", "--device", "cpu", "--decode.serve_dp", "2"])
     with pytest.raises(ValueError, match="Unknown config keys"):

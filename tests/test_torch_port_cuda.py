@@ -530,3 +530,152 @@ class TestEvalPath:
             with open(f"{cfg.result_dir}/test_prediction.csv") as f:
                 out[graphs] = f.read()
         assert out[None] == out[False] and out[None].count("\n") == 1 + 7 + 9
+
+
+# ---- the continuous engine replayed from CUDA graphs against the same engine run eagerly ----
+
+_ENGINE_VOCAB, _ENGINE_SLOTS, _ENGINE_BEAM, _ENGINE_LEN = 30000, 16, 3, 100
+
+
+def _engine_model(dev, dtype):
+    """A FinetuneModel with a narrow encoder (64 px, 2 heads) and the R2Gen
+    decoder at full width (d 512, 8 heads, 3 layers, 30001 logits), seeded."""
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.params import init_params_
+
+    with torch.device(dev):
+        model = FinetuneModel(vocab_size=_ENGINE_VOCAB, output_dim=256, encoder_hidden_size=64,
+                              encoder_num_layers=1, encoder_num_heads=2,
+                              encoder_intermediate_size=128, fusion_num_heads=2,
+                              fusion_intermediate_size=128, proj_num_heads=2,
+                              fusion_wide_qkv=False, max_seq_len=_ENGINE_LEN, dtype=dtype)
+    return init_params_(model, 0).eval()
+
+
+def _engine_loader(n_batches, width, seed=0):
+    """Loader batches of ``width`` studies with an indication and one aux view
+    each, 64 px, and forced report lengths in ``_aux`` (15..100)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_batches):
+        out.append({
+            "images": rng.normal(size=(2 * width, 64, 64, 3)).astype(np.float32),
+            "ids": np.ones((width, 16), np.int32), "mask": np.ones((width, 16), np.int32),
+            "pids": np.concatenate([np.arange(width)] * 2).astype(np.int32),
+            "valid": np.ones(2 * width, bool),
+            "inc_ids": rng.integers(5, 1000, size=(width, 16)).astype(np.int32),
+            "inc_mask": np.ones((width, 16), np.int32),
+            "_image_ids": [f"s{seed}_{i}_{j}" for j in range(width)],
+            "_aux": rng.integers(15, _ENGINE_LEN + 1, size=width).astype(np.int32)})
+    return out
+
+
+def _force_topk(eos):
+    """The forced-length surface on the fused tail: each slot's target length
+    is its ``aux``."""
+    from evoke_tpu_torch.decode.forcing import force_topk
+
+    def wrapper(vals, idx, lse, age_rows, aux):
+        return force_topk(vals, idx, age_rows, aux.repeat_interleave(_ENGINE_BEAM), eos)
+
+    return wrapper
+
+
+def _engine(dev, dtype, graphs, **kw):
+    from evoke_tpu_torch.decode.continuous import ContinuousServer
+    from evoke_tpu_torch.decode.forcing import synthetic_tokenizer
+
+    tok = synthetic_tokenizer(_ENGINE_VOCAB, spell_ids=True)
+    return ContinuousServer(_engine_model(dev, dtype), tok, max_seq_len=_ENGINE_LEN,
+                            slots=_ENGINE_SLOTS, beam_size=_ENGINE_BEAM, suppress_unk=True,
+                            topk_wrapper=_force_topk(tok.eos_id), device=dev, graphs=graphs,
+                            **{"seg_steps": 10, "dispatch_segs": 2, "pack_batches": 2, **kw})
+
+
+def _lengths_honoured(records, batches):
+    want = {i: int(n) for b in batches for i, n in zip(b["_image_ids"], b["_aux"])}
+    got = {r["id"]: len(r["report"].split()) for r in records}
+    return got == want
+
+
+class TestContinuousGraphs:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_captured_equals_eager(self, cuda_device, dtype):
+        """The same dispatches on the card: the records, and every carry and
+        decode-state buffer after the run, bit-equal; each study's forced
+        length honoured."""
+        batches = _engine_loader(4, 12)
+        out = {}
+        for graphs in (None, False):
+            srv = _engine(cuda_device, dtype, graphs)
+            recs, stats = srv.serve(batches)
+            torch.cuda.synchronize()
+            out[graphs] = (srv, recs, stats)
+        (cap, rc, sc), (eag, re_, se) = out[None], out[False]
+        assert cap.loop.graphs and not eag.loop.graphs and len(cap.loop._steps) == _ENGINE_LEN
+        assert rc == re_ and _lengths_honoured(rc, batches)
+        assert sc["segment_steps"] == se["segment_steps"] and sc["capture_s"] > 0
+        for name in ("seq", "done_seq", "done_score", "alive", "age", "base", "tok", "t"):
+            assert torch.equal(getattr(cap.loop, name), getattr(eag.loop, name)), name
+        for key in ("memory", "cache_k", "cache_v", "anc"):
+            for a, b in zip(cap.loop.dec[key] if key.startswith("cache") else [cap.loop.dec[key]],
+                            eag.loop.dec[key] if key.startswith("cache") else [eag.loop.dec[key]]):
+                assert torch.equal(a, b), key
+
+    def test_pack_switch_with_dispatches_in_flight(self, cuda_device):
+        """One loader batch a pack, so the host switches packs while ``depth``
+        dispatches are queued: the records equal those of depth 1 (a read
+        after every dispatch), at float32 (the studies land in other slots and
+        ring offsets, which changes only the order of sums)."""
+        from evoke_tpu_torch.decode import continuous
+
+        batches = _engine_loader(5, 8, seed=1)
+        srv = _engine(cuda_device, torch.float32, None, pack_batches=1, dispatch_segs=1)
+        loads = []
+        load = continuous.ContinuousLoop.load_pack
+
+        def counted(self, pack):
+            loads.append(pack["att_mask"].shape[0])
+            return load(self, pack)
+
+        continuous.ContinuousLoop.load_pack = counted
+        try:
+            deep, _ = srv.serve(batches, depth=4)
+            n_deep = len(loads)
+            shallow, _ = srv.serve(batches, depth=1)
+        finally:
+            continuous.ContinuousLoop.load_pack = load
+        assert n_deep == len(batches) and deep == shallow
+        assert _lengths_honoured(deep, batches)
+
+    def test_second_serve_of_another_width_and_no_recapture(self, cuda_device):
+        """A warm server: the same width captures nothing; another width
+        captures only its segment heads; the records equal a fresh server's."""
+        wide, narrow = _engine_loader(2, 12, seed=2), _engine_loader(3, 8, seed=2)
+        srv = _engine(cuda_device, torch.bfloat16, None)
+        first, s1 = srv.serve(wide)
+        steps = list(srv.loop._steps)
+        again, s2 = srv.serve(wide)
+        second, s3 = srv.serve(narrow)
+        fresh, _ = _engine(cuda_device, torch.bfloat16, None).serve(narrow)
+        assert s1["capture_s"] > 0 and s2["capture_s"] == 0.0 and s3["capture_s"] > 0
+        assert srv.loop._steps == steps and sorted(srv.loop._heads) == [16, 24]
+        assert first == again and second == fresh
+        assert _lengths_honoured(second, narrow)
+
+    def test_replays_count_as_launches(self, cuda_device):
+        """3 decoder layers: K1 three times and K2 once per replayed step; the
+        segment heads launch neither; the capture counts nothing."""
+        batches = _engine_loader(2, 12, seed=3)
+        srv = _engine(cuda_device, torch.bfloat16, None)
+        srv.serve(batches[:1])
+        lineage_attention.launches = fused_logit_topk.launches = 0
+        srv.loop.steps_run = 0
+        srv.serve(batches)
+        torch.cuda.synchronize()
+        steps = srv.loop.steps_run
+        assert steps > 0 and (lineage_attention.launches, fused_logit_topk.launches) == (
+            3 * steps, steps)
+        per = srv.loop._ledger.per_graph
+        assert {per[key] for key in per if key[0] == "step"} == {(3, 1)}
+        assert {per[key] for key in per if key[0] == "head"} == {(0, 0)}
