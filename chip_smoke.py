@@ -102,7 +102,22 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    name and power limit; for the continuous engine reports/s both to its last
    read (the JAX engine's window) and with the drain of the dispatches still
    queued then, and the two engines' ratio with all issued work counted;
-9. a JSON line of every ported kernel (launches: phase 4's captured run),
+9. finetune training: (a) the train step at full width (phase 4's flagship
+   widths with the CLI's dense fusion, bf16 over float32 masters), the CLI's
+   default batch (32 anchors + 32 aux, uint8 images, 100-token reports with
+   indication) and optimizer (RAdam in two groups, clip 0.1): 3 warm-up
+   steps, 10 timed (median ms a step, studies/s, peak GiB), 1 under
+   torch.profiler (kernel launches a step, device busy share; with
+   ``--profile`` its top kernels), 6 more at 100x the learning rates; the
+   loss after 20 steps on the repeated batch must be below the first, and
+   K1 / K2 / K3 must launch 0 times; (b) one TINY float32 train step (dropout
+   off) on the card against the CPU within ``TRAIN_TOL``: loss, every
+   gradient, every updated parameter; (c) ``cli finetune`` in-process at full
+   width, every CLI default but bf16, over a 224 px synthetic dataset (64
+   train / 16 val / 16 test studies, 30000 words) for 1 epoch, then
+   ``--trainer.resume auto`` for a second: the current slot, the epoch-2
+   start, the run's files, K1 = K2 = K3 = 0 launches;
+10. a JSON line of every ported kernel (launches: phase 4's captured run),
    then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -527,11 +542,8 @@ def write_cli_dataset(root, seed):
     160 test studies) and a 30000-word tokenizer where build_tokenizer looks.
     Returns (annotation path, tokenizer dir, test studies with indication,
     without)."""
-    import os
-
     from evoke_tpu_torch.data.datasets import load_annotation, parse_finetune
     from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
-    from evoke_tpu_torch.data.tokenizer import WordTokenizer
 
     t0 = time.perf_counter()
     ann = write_synthetic_dataset(root, n_train=8, n_val=0, n_test=160, image_size=224,
@@ -540,20 +552,31 @@ def write_cli_dataset(root, seed):
     if len(has_ind) < 96 or not no_ind:
         raise AssertionError(f"synthetic split: {len(has_ind)} studies with "
                              f"indication, {len(no_ind)} without")
-    # a 30000-word vocab where build_tokenizer looks: the dataset's words first
-    words = {w: i for w, i in WordTokenizer.train(
-        r["report"] for r in load_annotation(ann)["train"]).vocab.items()
-        if w not in ("[BOS]", "[EOS]")}                  # re-appended last
-    for i in range(30000 - 2 - len(words)):
-        words[f"w{i}"] = len(words)
-    tok = WordTokenizer(words)
-    assert tok.get_vocab_size() == 30000
-    tok_dir = os.path.join(root, "tok")
-    os.makedirs(tok_dir)
-    tok.save(os.path.join(tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
+    tok_dir = write_cli_tokenizer(root, ann)
     log(f"cli data: {len(has_ind)} test studies with indication, {len(no_ind)} "
         f"without, 224 px .npy, {time.perf_counter() - t0:.1f}s")
     return ann, tok_dir, has_ind, no_ind
+
+
+def write_cli_tokenizer(root, ann, size=30000):
+    """A ``size``-word vocab where build_tokenizer looks (``root``/tok): the
+    dataset's words first. Returns the tokenizer dir."""
+    import os
+
+    from evoke_tpu_torch.data.datasets import load_annotation
+    from evoke_tpu_torch.data.tokenizer import WordTokenizer
+
+    words = {w: i for w, i in WordTokenizer.train(
+        r["report"] for r in load_annotation(ann)["train"]).vocab.items()
+        if w not in ("[BOS]", "[EOS]")}                  # re-appended last
+    for i in range(size - 2 - len(words)):
+        words[f"w{i}"] = len(words)
+    tok = WordTokenizer(words)
+    assert tok.get_vocab_size() == size
+    tok_dir = os.path.join(root, "tok")
+    os.makedirs(tok_dir)
+    tok.save(os.path.join(tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
+    return tok_dir
 
 
 def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
@@ -895,10 +918,12 @@ def test_cli(root, ann, tok_dir, has_ind, no_ind, smi, seed):
     return out
 
 
-def profile_serving(run, what="1 batch", top=15):
+def profile_serving(run, what="1 batch", top=15, ported=PORTED_KERNELS, quiet=False):
     """``run()`` (a server serving) under torch.profiler: device busy share of
     the window (sum of kernel times over wall time; the profiler's own host
-    cost lengthens the wall) and the kernels with the most device time."""
+    cost lengthens the wall) and the kernels with the most device time; each
+    of ``ported`` (fragments of kernel names) must be among them. ``quiet``
+    prints the summary line only."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -915,7 +940,7 @@ def profile_serving(run, what="1 batch", top=15):
            "top": [{"name": e.key[:90], "count": e.count,
                     "device_ms": e.self_device_time_total / 1e3} for e in kern[:top]],
            "ported": {}}
-    for frag in PORTED_KERNELS:   # each hand-written kernel, wherever it ranks
+    for frag in ported:   # each hand-written kernel, wherever it ranks
         hits = [e for e in kern if frag in e.key]
         out["ported"][frag] = {"count": sum(e.count for e in hits),
                                "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
@@ -925,6 +950,8 @@ def profile_serving(run, what="1 batch", top=15):
     log(f"profile ({what}): wall_ms={out['wall_ms']:.1f} device_busy_ms="
         f"{out['device_busy_ms']:.1f} busy_share={out['busy_share']:.3f} "
         f"kernel_launches={out['kernel_launches']}")
+    if quiet:
+        return out
     for t in out["top"]:
         log(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
     for frag, t in out["ported"].items():
@@ -1257,6 +1284,301 @@ def continuous_engine(model, cfg, vocab, dev, seed, smi, with_profile=False):
                 batch_max_lengths=[int(x) for x in lengths.max(1)], profile=profile)
 
 
+# ---- phase 9: finetune training ----
+
+# the port's TINY test dims (tests/_torch_port_util.TINY)
+TRAIN_TINY = dict(output_dim=64, encoder_hidden_size=32, encoder_num_layers=1,
+                  encoder_num_heads=2, encoder_intermediate_size=64, d_model=32, d_ff=64,
+                  num_heads=2, num_layers=2, rm_num_slots=3, rm_d_model=32,
+                  fusion_num_heads=2, fusion_intermediate_size=64, sk_fusion_num_layers=1,
+                  max_seq_len=16, fusion_wide_qkv=False)
+# one TINY float32 train step, card against CPU (TF32 off): the loss 1e-4
+# relative; gradients outside the ResNet 1e-3 of (the leaf's largest + 1e-3 of
+# the largest gradient); the ResNet's 3e-2 in L2 norm relative (33
+# batch-statistics BatchNorm blocks over 4 images amplify float32 rounding
+# ~1.3x a block: the port's float32 step on one CPU is only that close to its
+# float64 step); updated parameters within the learning rate times their
+# gradient's difference, plus 1e-6 relative
+TRAIN_TOL = dict(loss=1e-4, grad=1e-3, resnet_l2=3e-2)
+TRAIN_LR = dict(pt_lr=1e-2, ft_lr=3e-2, weight_decay=1e-4, grad_clip_value=0.1)
+
+
+def train_case(model, opt_name, lr, batch, with_indication, dropout=True, seed=0):
+    """One train step of ``model`` (a copy is not made): (loss, the gradients
+    the optimizer was given, the updated parameters)."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    opt = build_optimizer(opt_name, "finetune", model, **lr)
+    seen = {}
+    step = opt.step
+
+    def recording(grads):
+        seen.update({k: g.detach().float().cpu() for k, g in grads.items() if g is not None})
+        return step(grads)
+
+    opt.step = recording
+    out = make_train_step(model, opt, seed, with_indication=with_indication,
+                          dropout=dropout)(TrainState(model, opt), batch)
+    params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    return float(out["lm"]), seen, params
+
+
+def tiny_train_model(dtype=torch.float32, seed=0, **kw):
+    """The TINY flagship on the CPU, seeded, each Bottleneck's bn3 scale x 0.1
+    (keeps the batch-statistics forward well conditioned at 4 images)."""
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.params import init_params_
+
+    model = init_params_(FinetuneModel(vocab_size=50, dtype=dtype, **TRAIN_TINY, **kw), seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.weight"):
+                p.mul_(0.1)
+    return model
+
+
+def train_card_vs_cpu(dev, seed):
+    """Phase 9 (b): one TINY float32 train step (RAdam, two groups, dropout
+    off, BatchNorm on batch statistics) on the card and on the CPU."""
+    import copy
+
+    rng = np.random.default_rng(seed + 11)
+    bt = example_batch(rng, 2, 2, 64, 16, 50)
+    bt["mask"][1, 12:] = 0
+    bt["valid"][3] = False
+    bt["images"][3] = 0.0
+    model = tiny_train_model(seed=seed)
+    cpu = train_case(copy.deepcopy(model), "RAdam", TRAIN_LR,
+                     {k: torch.as_tensor(v) for k, v in bt.items()}, True, dropout=False)
+    card = train_case(copy.deepcopy(model).to(dev), "RAdam", TRAIN_LR,
+                      {k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, True,
+                      dropout=False)
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    gmax = max(g.abs().max().item() for g in cpu[1].values())
+    worst, resnet = 0.0, [0.0, 0.0]
+    for name, want in cpu[1].items():
+        got = card[1][name]
+        if name.startswith("visual_extractor."):
+            resnet[0] += float(((got - want) ** 2).sum())
+            resnet[1] += float((want ** 2).sum())
+            continue
+        err = (got - want).abs().max().item() / (want.abs().max().item() + 1e-3 * gmax)
+        worst = max(worst, err)
+    resnet_l2 = math.sqrt(resnet[0] / resnet[1])
+    bad_params = []
+    for name, want in cpu[2].items():
+        lr = TRAIN_LR["ft_lr"] if any(s in name for s in (
+            "text_decoder", "visual_self_atten", "multimodal_fusion", "visual_head",
+            "text_head")) else TRAIN_LR["pt_lr"]
+        g_err = (card[1].get(name, torch.zeros_like(want))
+                 - cpu[1].get(name, torch.zeros_like(want))).abs()
+        if ((card[2][name] - want).abs() > lr * g_err * 1.01 + 1e-6 * want.abs()
+                + 1e-7).any():
+            bad_params.append(name)
+    out = dict(loss_cpu=cpu[0], loss_card=card[0], loss_rel_err=loss_err,
+               grad_err=worst, resnet_grad_l2_err=resnet_l2, params_outside=bad_params)
+    log(f"train step card vs CPU (TINY, float32, TF32 off, RAdam, dropout off): loss "
+        f"{card[0]:.6f} vs {cpu[0]:.6f} (rel {loss_err:.2e}, tol {TRAIN_TOL['loss']}); "
+        f"gradients outside the ResNet {worst:.2e} (tol {TRAIN_TOL['grad']}), ResNet L2 "
+        f"{resnet_l2:.2e} (tol {TRAIN_TOL['resnet_l2']}); updated parameters outside "
+        f"lr x gradient difference: {len(bad_params)}")
+    if (loss_err > TRAIN_TOL["loss"] or worst > TRAIN_TOL["grad"]
+            or resnet_l2 > TRAIN_TOL["resnet_l2"] or bad_params):
+        raise AssertionError(f"train step card vs CPU: {out}")
+    return out
+
+
+def train_step_full_width(vocab, dev, seed, smi, with_profile):
+    """Phase 9 (a): the finetune train step at full width (ResNet-101 @ 224,
+    dense wide-qkv fusion, 768x6 encoder + BertCrossLayer, R2Gen 512 x 3,
+    30001 logits), bf16 over float32 masters, the CLI's default batch (32
+    anchors + 32 aux, uint8 images, 100-token reports, with indication) and
+    optimizer (RAdam, two groups, clip 0.1); 20 steps on one repeated batch:
+    3 warm-up, 10 timed, 1 profiled (the launches a step), 6 more with the
+    learning rates x 100 so that 20 steps can show the loss falling."""
+    from evoke_tpu_torch.core.config import OptimConfig
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.params import init_params_
+    from evoke_tpu_torch.train.optim import build_optimizer, set_lr_scale
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    o = OptimConfig()
+    t0 = time.perf_counter()
+    n_anchor, image_size, seq = 32, 224, 100
+    with torch.device(dev):
+        model = FinetuneModel(vocab_size=vocab, max_seq_len=seq, dtype=torch.bfloat16)
+    init_params_(model, seed)
+    opt = build_optimizer(o.optim, "finetune", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+                          weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, seed, with_indication=True)
+    rng = np.random.default_rng(seed + 5)
+    bt = example_batch(rng, n_anchor, n_anchor, image_size, seq, vocab)
+    bt["images"] = rng.integers(0, 256, size=bt["images"].shape, dtype=np.uint8)
+    bt["mask"][:, seq * 3 // 5:] = 0
+    bt["mask"][::2, seq * 2 // 5:] = 0
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in bt.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    set_up = time.perf_counter() - t0
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+    masked_cross_view_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(13):
+        t1 = time.perf_counter()
+        losses.append(step(state, batch)["lm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_serving(lambda: losses.append(step(state, batch)["lm"]),
+                           what="1 train step", ported=(), quiet=not with_profile)
+    set_lr_scale(opt, 100.0)
+    for i in range(6):
+        losses.append(step(state, batch)["lm"])
+    losses = torch.stack(losses).float().cpu().tolist()
+    kernels = (lineage_attention.launches, fused_logit_topk.launches,
+               masked_cross_view_attention.launches)
+    ms = statistics.median(times[3:]) * 1e3
+    out = dict(params=n_params, set_up_s=set_up, step_ms=ms, step_ms_all=[t * 1e3 for t in times],
+               studies_per_s=n_anchor / (ms / 1e3), peak_mem_gib=peak_gib,
+               launches_per_step=prof["kernel_launches"], busy_share=prof["busy_share"],
+               profiled_wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+               losses=losses, launches_k1_k2_k3=kernels, top=prof["top"] if with_profile else [])
+    log(f"train step [{smi}]: bf16 over float32 masters, {n_params / 1e6:.1f}M parameters, "
+        f"batch {n_anchor} + {n_anchor} aux at {image_size} px, {seq} tokens, with indication, "
+        f"RAdam: "
+        f"step_ms={ms:.1f} (median of 10 after 3 warm-up), studies_per_s="
+        f"{out['studies_per_s']:.1f}, peak_mem_gib={peak_gib:.2f}, launches_per_step="
+        f"{out['launches_per_step']}, busy_share={out['busy_share']:.3f} (1 profiled step); "
+        f"loss step 1 {losses[0]:.4f} -> step 20 {losses[-1]:.4f}; K1/K2/K3 launches "
+        f"{kernels}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train step: the loss did not fall over 20 steps: {losses}")
+    if any(kernels):
+        raise AssertionError(f"train step launched a decode kernel: {kernels}")
+    del model, opt, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def finetune_cli(root, seed, smi):
+    """Phase 9 (c): ``cli finetune`` in-process at full width, every CLI
+    default but bf16 and 1 epoch, over a synthetic 224 px dataset (64 train /
+    16 val / 16 test studies, a 30000-word tokenizer), then ``--trainer.resume
+    auto`` for a second epoch. K1, K2 and K3 must launch 0 times (training
+    and the eval path reach none of them)."""
+    import contextlib
+    import io
+    import os
+
+    from evoke_tpu_torch import cli
+    from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+    from evoke_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    splits = (64, 16, 16)
+    ann = write_synthetic_dataset(root, n_train=splits[0], n_val=splits[1],
+                                  n_test=splits[2], image_size=224, seed=seed)
+    tok_dir = write_cli_tokenizer(root, ann)
+    data_s = time.perf_counter() - t0
+    res = os.path.join(root, "results")
+    argv = ["--data.ann_path", ann, "--data.image_dir", root, "--data.tokenizer_dir", tok_dir,
+            "--trainer.result_dir", res, "--model.dtype", "bfloat16",
+            "--trainer.resume", "auto"]
+    epochs, save_s = [], []
+    epoch_fn, save_fn = trainer.FinetuneTrainer._train_epoch, trainer.BaseTrainer._save
+
+    def timed_epoch(self, epoch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        log_ = epoch_fn(self, epoch)
+        epochs.append((epoch, time.perf_counter() - t, dict(self.stats)))
+        return log_
+
+    def timed_save(self, *a):
+        t = time.perf_counter()
+        save_fn(self, *a)
+        self.ckpt.wait()
+        save_s.append(time.perf_counter() - t)
+
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+    masked_cross_view_attention.launches = 0
+    trainer.FinetuneTrainer._train_epoch, trainer.BaseTrainer._save = timed_epoch, timed_save
+    walls = []
+    buf = io.StringIO()
+    try:
+        for n in (1, 2):
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["finetune"] + argv + ["--trainer.epochs", str(n)])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            if rc != 0:
+                raise AssertionError(f"cli finetune returned {rc}")
+            gc_cuda()
+    finally:
+        trainer.FinetuneTrainer._train_epoch, trainer.BaseTrainer._save = epoch_fn, save_fn
+    kernels = (lineage_attention.launches, fused_logit_topk.launches,
+               masked_cross_view_attention.launches)
+    run = os.path.join(res, "mimic_cxr", "finetune", "v1")
+    files = sorted(os.listdir(run))
+    want = ["checkpoint", "config.json", "finetune.log", "metrics.jsonl",
+            "mimic_cxr_finetune_results_record.csv", "test_prediction.csv",
+            "val_prediction.csv"]
+    with open(os.path.join(run, "finetune.log")) as f:
+        text = f.read()
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    slot = os.path.join(run, "checkpoint", "current", "state.pt")
+    problems = []
+    if files != want:
+        problems.append(f"files {files}")
+    if not os.path.isfile(slot):
+        problems.append("no current slot")
+    if "resumed from current: epoch 2" not in text:
+        problems.append("the second run did not start at epoch 2")
+    if [r["epoch"] for r in recs] != [1, 2] or not all(
+            math.isfinite(r["train_lm"]) for r in recs):
+        problems.append(f"metrics.jsonl epochs {[r.get('epoch') for r in recs]}")
+    if [e for e, _, _ in epochs] != [1, 2]:
+        problems.append(f"epochs run {[e for e, _, _ in epochs]}")
+    if any(kernels):
+        problems.append(f"K1/K2/K3 launches {kernels}")
+    out = dict(data_s=data_s, cli_wall_s=walls, epoch_s=[s for _, s, _ in epochs],
+               eval_stats=[st for _, _, st in epochs], save_s=save_s,
+               checkpoint_gib=os.path.getsize(slot) / 2 ** 30 if os.path.isfile(slot) else None,
+               train_lm=[r["train_lm"] for r in recs], launches_k1_k2_k3=kernels,
+               files=files)
+    log(f"cli finetune [{smi}]: {splits[0]} train / {splits[1]} val / {splits[2]} test "
+        f"studies, bf16, 1 epoch then "
+        f"--trainer.resume auto for epoch 2: cli wall {[round(w, 1) for w in walls]} s, "
+        f"epochs (train + val/test decode and metrics) "
+        f"{[round(s, 1) for s in out['epoch_s']]} s, checkpoint saves "
+        f"{[round(s, 1) for s in save_s]} s of {out['checkpoint_gib'] or 0:.2f} GiB, "
+        f"train_lm {[round(x, 4) for x in out['train_lm']]}, K1/K2/K3 launches {kernels}; "
+        f"data {data_s:.1f}s")
+    if problems:
+        raise AssertionError(f"cli finetune: {problems}")
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def flagship(vocab_size, dtype, dev, seed):
     """__graft_entry__._flagship(vocab_size) at full width, seeded random weights."""
     from evoke_tpu_torch.models.finetune import FinetuneModel
@@ -1471,6 +1793,14 @@ def main():
     torch.cuda.empty_cache()
     log(f"continuous engine phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- phase 9: finetune training ----
+    t0 = time.perf_counter()
+    train_full = train_step_full_width(vocab, dev, args.seed, smi, args.profile)
+    train_check = train_card_vs_cpu(dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as root:
+        finetune = finetune_cli(root, args.seed, smi)
+    log(f"finetune phase {time.perf_counter() - t0:.1f}s")
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -1505,6 +1835,8 @@ def main():
             "main_path": dict(st, reference_token_agreement=agree),
             "main_path_runs": runs, "main_path_set_up": set_up,
             "decode_step_wall_ms": step_wall, "early_stop": early,
+            "finetune": {"train_step": train_full, "card_vs_cpu": train_check,
+                         "cli": finetune},
             "kernels": kernels["kernels"], "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }

@@ -8,6 +8,13 @@ kernels' plain PyTorch versions.
 
 Ported:
 
+- ``finetune``: stage-2 training (train steps over the indication loader,
+  then the no-indication loader; the optax-exact RAdam / AMSGrad chain in two
+  groups), then beam decode of val and test on the eval path with their
+  metrics and ``{split}_prediction.csv`` columns, every epoch; checkpoints
+  under ``{result_dir}/checkpoint/`` (``current`` every ``save_period``
+  epochs, ``best`` on monitor improvement), ``--trainer.resume auto|current|
+  best`` and ``--trainer.load <slot dir or state dict file>``;
 - ``test``: beam decode of the test split on the eval path, the metrics (NLG
   always; CheXbert on the device when ``--metrics.chexbert_checkpoint`` is
   set; the other CE metrics when their packages and checkpoints are there),
@@ -21,7 +28,8 @@ Ported:
   ``--decode.engine batch`` (the default: pipelined batches) or
   ``continuous`` (slots refilled mid-stream, ``decode/continuous.py``).
 
-The other tasks raise NotImplementedError naming their ROADMAP item.
+``pretrain`` and ``retrieve`` raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -33,13 +41,11 @@ import sys
 from typing import Dict, List, Optional
 
 TASKS = ("pretrain", "finetune", "test", "retrieve", "score", "serve")
-_NOT_PORTED = {"pretrain": "A11", "retrieve": "A11", "finetune": "A10"}
+_NOT_PORTED = {"pretrain": "A11", "retrieve": "A11"}
 
 
 def build_model(cfg, vocab_size: int, device):
-    """The finetune model of ``evoke_tpu/cli.py`` build_model, on ``device``
-    (inference: the training-only dropout, drop_prob_lm and remat_visual are
-    not read)."""
+    """The finetune model of ``evoke_tpu/cli.py`` build_model, on ``device``."""
     import torch
 
     from evoke_tpu_torch.models.finetune import FinetuneModel
@@ -59,28 +65,30 @@ def build_model(cfg, vocab_size: int, device):
             fusion_num_heads=m.fusion_num_heads,
             fusion_intermediate_size=m.fusion_intermediate_size,
             sk_fusion_num_layers=m.sk_fusion_num_layers, d_model=m.d_model, d_ff=m.d_ff,
-            num_heads=m.num_heads, num_layers=m.num_layers, rm_num_slots=m.rm_num_slots,
+            num_heads=m.num_heads, num_layers=m.num_layers, dropout=m.dropout,
+            drop_prob_lm=m.drop_prob_lm, rm_num_slots=m.rm_num_slots,
             rm_num_heads=m.rm_num_heads, rm_d_model=m.rm_d_model,
-            max_seq_len=cfg.data.max_seq_len, dtype=dtype)
+            max_seq_len=cfg.data.max_seq_len, remat_visual=m.remat_visual, dtype=dtype)
 
 
-def build_loaders(cfg, tokenizer, ann, split: str = "test"):
-    """One split's (with-indication, without-indication) eval loaders, as
+def build_loaders(cfg, tokenizer, ann, split: str = "test", train: bool = False):
+    """One split's (with-indication, without-indication) loaders, as
     ``evoke_tpu/cli.py`` build_loaders makes them for the finetune model
-    (None where a stream is empty or indication is off)."""
+    (None where a stream is empty or indication is off); ``train``: the
+    training transform and a shuffled order."""
     from evoke_tpu_torch.data.batching import MultiviewBatcher
     from evoke_tpu_torch.data.datasets import parse_finetune
     from evoke_tpu_torch.data.transforms import make_transform
 
     common = dict(n_anchor=cfg.data.batch_size, max_seq_len=cfg.data.max_seq_len,
                   image_dir=cfg.data.image_dir, num_workers=cfg.data.num_workers)
-    tf = make_transform(cfg.model.image_size, False, output_uint8=cfg.data.images_uint8)
+    tf = make_transform(cfg.model.image_size, train, output_uint8=cfg.data.images_uint8)
     has_ind, no_ind = parse_finetune(ann, split)
 
     def mk(exs, with_ind):
         if not exs:
             return None
-        return MultiviewBatcher(exs, tokenizer, tf, shuffle=False, with_indication=with_ind,
+        return MultiviewBatcher(exs, tokenizer, tf, shuffle=train, with_indication=with_ind,
                                 text_field="report", add_bos_eos=True,
                                 multiview=cfg.model.is_multiview_learning, **common)
 
@@ -155,7 +163,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg.trainer.task = task
     if task in _NOT_PORTED:
         raise NotImplementedError(f"task {task!r} is not ported yet "
-                                  f"(ROADMAP {_NOT_PORTED[task]}); ported: test, score, serve")
+                                  f"(ROADMAP {_NOT_PORTED[task]}); ported: finetune, test, "
+                                  "score, serve")
     if task == "score":
         return _score(cfg)
     if task == "serve":
@@ -176,6 +185,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = build_model(cfg, cfg.vocab_size, device)
     init_params_(model, cfg.trainer.seed)
     model.eval()
+    if task == "finetune":
+        return _finetune(cfg, model, tokenizer, ann, device)
     loaders = build_loaders(cfg, tokenizer, ann)
     if task == "test":
         from evoke_tpu_torch.train.trainer import Tester
@@ -189,6 +200,29 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         print(f"loaded weights: {partial_restore_from(cfg.trainer.load, model)}")
     return _serve(cfg, model, tokenizer, loaders, device)
+
+
+def _finetune(cfg, model, tokenizer, ann, device) -> int:
+    """Stage-2 training (``evoke_tpu/cli.py``'s finetune task): the model
+    initialised from the seed, the optimizer over its parameters (the
+    state of ``init_finetune_state``), FinetuneTrainer over the train loaders
+    with val and test evaluated every epoch."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState
+    from evoke_tpu_torch.train.trainer import FinetuneTrainer
+
+    o = cfg.optim
+    opt = build_optimizer(o.optim, "finetune", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+                          weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value,
+                          grad_accum_steps=o.grad_accum_steps)
+    loaders = {split: build_loaders(cfg, tokenizer, ann, split, train=split == "train")
+               for split in ("train", "val", "test")}
+    trainer = FinetuneTrainer(cfg, model, tokenizer,
+                              eval_loaders={"val": loaders["val"], "test": loaders["test"]},
+                              state=TrainState(model, opt), train_loaders=loaders["train"],
+                              metrics_fn=metrics_fn_for(cfg, device), device=device)
+    trainer.train()
+    return 0
 
 
 def _serve(cfg, model, tokenizer, test_loaders, device) -> int:

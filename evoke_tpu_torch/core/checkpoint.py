@@ -1,20 +1,43 @@
-"""Cross-stage partial weight load (the port's counterpart of
-``evoke_tpu/core/checkpoint.py`` ``CheckpointManager.partial_restore_from``).
+"""Run checkpoints and cross-stage partial weight loads (the port's
+counterpart of ``evoke_tpu/core/checkpoint.py``).
+
+``CheckpointManager`` keeps two slots under a run's ``checkpoint/`` directory,
+as the reference does (``current`` every ``save_period`` epochs, ``best`` on
+monitor improvement; trainer_v0401.py:160-176):
+
+    {dir}/current/state.pt   {dir}/current.meta.json
+    {dir}/best/state.pt      {dir}/best.meta.json
+
+``state.pt`` is a ``torch.save`` of ``TrainState.state_dict()``: the float32
+parameters, the BatchNorm statistics, the optimizer's moments and counters and
+the step. ``meta.json`` holds {epoch, monitor_best, scheduler}. The format is
+the port's own: it does not read the JAX package's orbax checkpoints (carry
+JAX weights over with ``params.flax_to_state_dict`` + ``save_state_dict``).
+
+A save copies the state to the host synchronously and, with
+``async_save=True``, writes it on a background thread while training goes
+on; saves are serialised, and a slot's file is replaced atomically (written
+beside it, then renamed), so a run cut mid-save keeps its previous slot.
 
 The reference seeds a stage from another stage's weights with
-``load_state_dict(strict=False)`` (trainer_v0401.py:191-202): every target
-entry whose name and shape match a source entry is loaded, the rest keep their
-values. The port reads a ``torch.save`` file of a flat state dict, for example
-``save_state_dict(params.flax_to_state_dict(jax_variables), path)``; it does
-not read orbax checkpoints. Full training checkpoints are ROADMAP A10.
+``load_state_dict(strict=False)`` (trainer_v0401.py:191-202):
+``partial_restore`` loads every entry whose name and shape match and leaves
+the rest; ``partial_restore_from`` reads a slot directory or a ``torch.save``
+file of a flat state dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+STATE_FILE = "state.pt"
 
 
 def save_state_dict(state_dict: Mapping[str, object], path: str) -> None:
@@ -24,12 +47,134 @@ def save_state_dict(state_dict: Mapping[str, object], path: str) -> None:
                 for k, v in state_dict.items()}, path)
 
 
-def partial_restore(source: Mapping[str, object], module: torch.nn.Module
-                    ) -> Dict[str, int]:
+def _to_host(tree):
+    """A host copy of every tensor in a nested dict (taken now)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, Mapping):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree
+
+
+def _replace_file(write, path: str) -> None:
+    tmp = path + ".tmp"
+    write(tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    """Slots ``current`` and ``best`` under ``directory`` (see the module
+    docstring). ``async_save`` writes on a background thread; ``wait()``
+    joins it and raises what it raised."""
+
+    def __init__(self, directory: str, async_save: bool = False):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _slot(self, name: str) -> str:
+        return os.path.join(self.directory, name)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, names, state, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Save ``state`` (a ``TrainState`` or anything with ``state_dict()``)
+        into the slot ``names`` (a name or a tuple of names: one write, the
+        other slots hard-linked to it) with ``meta``."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        self.wait()                      # serialise in-flight saves
+        host = _to_host(state.state_dict())
+        meta = dict(meta or {})
+
+        def write():
+            first = None
+            for name in names:
+                slot = self._slot(name)
+                os.makedirs(slot, exist_ok=True)
+                path = os.path.join(slot, STATE_FILE)
+                if first is None:
+                    _replace_file(lambda p: torch.save(host, p), path)
+                    first = path
+                else:
+                    _replace_file(lambda p: _link_or_copy(first, p), path)
+                _replace_file(lambda p: _write_json(meta, p), slot + ".meta.json")
+
+        if not self.async_save:
+            write()
+            return
+
+        def run():
+            try:
+                write()
+            except BaseException as e:    # re-raised by wait() on the caller's thread
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name="checkpoint-save", daemon=False)
+        self._thread.start()
+
+    def exists(self, name: str) -> bool:
+        self.wait()
+        return os.path.isfile(os.path.join(self._slot(name), STATE_FILE))
+
+    def restore(self, name: str, state) -> Dict[str, Any]:
+        """Full restore of slot ``name`` into ``state``: a ``TrainState``, or
+        a module, which takes the parameters and buffers only (strict).
+        Returns the slot's meta."""
+        self.wait()
+        slot = self._slot(name)
+        blob = torch.load(os.path.join(slot, STATE_FILE), map_location="cpu", weights_only=True)
+        if isinstance(state, torch.nn.Module):
+            state.load_state_dict({**blob["params"], **blob["buffers"]}, strict=True)
+        else:
+            state.load_state_dict(blob)
+        meta = {}
+        if os.path.exists(slot + ".meta.json"):
+            with open(slot + ".meta.json") as f:
+                meta = json.load(f)
+        return meta
+
+
+def _write_json(obj, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)
+
+
+def load_source(path: str) -> Dict[str, Any]:
+    """A flat name -> tensor dict from a checkpoint slot directory (its
+    float32 parameters and buffers) or a ``torch.save``d state dict file."""
+    if os.path.isdir(path):
+        blob = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                          weights_only=True)
+        return {**blob["params"], **blob["buffers"]}
+    source = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(source, Mapping):
+        raise TypeError(f"{path}: expected a state dict, got {type(source).__name__}")
+    return dict(source)
+
+
+def partial_restore(source: Mapping[str, object], module: torch.nn.Module,
+                    opt=None) -> Dict[str, int]:
     """Copy every ``source`` entry whose name and shape match ``module``'s
-    state dict into it (cast to the target's dtype and device). Returns counts:
-    ``loaded``; ``missing`` (target entries the source lacks); ``skipped``
-    (source entries not loaded: unknown names or other shapes)."""
+    state dict into it (cast to the target's dtype and device); with ``opt``
+    (a ``train.optim.Optimizer`` of ``module``) the loaded parameters also
+    set its float32 masters. Returns counts: ``loaded``; ``missing`` (target
+    entries the source lacks); ``skipped`` (source entries not loaded:
+    unknown names or other shapes)."""
     target = module.state_dict()
     merged = {}
     for key, tgt in target.items():
@@ -37,13 +182,12 @@ def partial_restore(source: Mapping[str, object], module: torch.nn.Module
         if src is not None and tuple(np.shape(src)) == tuple(tgt.shape):
             merged[key] = torch.as_tensor(np.asarray(src) if not torch.is_tensor(src) else src)
     module.load_state_dict(merged, strict=False)
+    if opt is not None:
+        opt.load_masters({k: v.float() for k, v in merged.items()})
     return {"loaded": len(merged), "missing": len(set(target) - set(source)),
             "skipped": len(source) - len(merged)}
 
 
-def partial_restore_from(path: str, module: torch.nn.Module) -> Dict[str, int]:
-    """``partial_restore`` from a ``torch.save``d state dict file."""
-    source = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(source, Mapping):
-        raise TypeError(f"{path}: expected a state dict, got {type(source).__name__}")
-    return partial_restore(source, module)
+def partial_restore_from(path: str, module: torch.nn.Module, opt=None) -> Dict[str, int]:
+    """``partial_restore`` from a slot directory or a state dict file."""
+    return partial_restore(load_source(path), module, opt)

@@ -67,7 +67,7 @@ class ModelConfig:
     # None = dense masked fusion attention over the whole batch; an int G =
     # grouped partner-gather attention over (1+G)*T keys (models/fusion.py)
     fusion_max_partners: Optional[int] = None
-    remat_visual: bool = False                   # training only (ROADMAP A10)
+    remat_visual: bool = False                   # training: checkpoint each Bottleneck
 
     is_multiview_learning: bool = True
     is_add_indication: bool = True

@@ -56,6 +56,12 @@ class MultiviewBatcher:
         self.aux_dropped = 0  # running count of truncated aux views (never silent)
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next pass the ``epoch``-th (from 0): its order and
+        augmentation come from ``seed + epoch``, so a resumed run's epoch
+        draws what an unbroken run's does."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         n = len(self.examples)
         if self.drop_last:
@@ -109,13 +115,16 @@ class MultiviewBatcher:
                     jobs.append((aux_slot, p))
                     aux_slot += 1
 
-        def work(slot_path):
-            slot, path = slot_path
-            img = load_image(path, self.image_dir)
-            images[slot] = self.transform(img, rng=np.random.default_rng(
-                rng.integers(0, 2**31)))
+        # each image's transform seed is drawn here, in slot order, so the
+        # worker threads' scheduling cannot reorder the augmentation draws
+        seeds = [int(rng.integers(0, 2**31)) for _ in jobs]
 
-        list(pool.map(work, jobs))
+        def work(job):
+            (slot, path), seed = job
+            img = load_image(path, self.image_dir)
+            images[slot] = self.transform(img, rng=np.random.default_rng(seed))
+
+        list(pool.map(work, zip(jobs, seeds)))
         mask = (ids != self.tokenizer.pad_id).astype(np.int32)
         batch = {"images": images, "ids": ids, "mask": mask, "pids": pids, "valid": valid,
                  "_image_ids": image_ids, "_gts": gts}

@@ -1,19 +1,27 @@
-"""Stage-2 finetune model, inference surface (port of evoke_tpu/models/finetune.py).
+"""Stage-2 finetune model (port of evoke_tpu/models/finetune.py).
 
 Visual encoder -> multiview fusion -> projection head (affine-free final BN)
 -> BertCrossLayer co-attention over the encoded indication (or BertLayer
 self-attention without one) -> R2Gen decoder over the patch tokens (1:).
+``forward`` is the training forward (the LM loss of teacher-forced
+log-probs); ``encode_for_decode`` / ``decode_step`` are the decode surface.
 Only ``decoder_kind="r2gen"`` with ``visual_encoder="resnet101"`` is ported;
-the other decoders and ViT are ROADMAP A12b, training is A10.
+the other decoders and ViT are ROADMAP A12b.
+
+Dropout rates are the JAX module's: ``dropout`` in the decoder's sublayers,
+``drop_prob_lm`` on its embedded image tokens, 0.1 in its relational memory,
+``encoder_dropout`` in the text encoder, 0.1 in the fusion attention and the
+co-attention layers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from evoke_tpu_torch.losses.lm import lm_loss
 from evoke_tpu_torch.models.fusion import MultiviewFusion
 from evoke_tpu_torch.models.heads import ProjectionHead
 from evoke_tpu_torch.models.layers import BertCrossLayer, BertLayer, make_cross_mask
@@ -30,10 +38,12 @@ class FinetuneModel(nn.Module):
                  sk_fusion_num_layers: int = 1, proj_num_heads: int = 8,
                  fusion_wide_qkv: bool = True, fusion_max_partners: Any = None,
                  d_model: int = 512, d_ff: int = 512, num_heads: int = 8,
-                 num_layers: int = 3, rm_num_slots: int = 3, rm_num_heads: int = 8,
+                 num_layers: int = 3, dropout: float = 0.0, drop_prob_lm: float = 0.5,
+                 rm_num_slots: int = 3, rm_num_heads: int = 8,
                  rm_d_model: int = 512, max_seq_len: int = 100,
                  is_multiview_learning: bool = True, decoder_kind: str = "r2gen",
-                 visual_encoder: str = "resnet101", dtype=torch.float32):
+                 visual_encoder: str = "resnet101", encoder_dropout: float = 0.1,
+                 remat_visual: bool = False, dtype=torch.float32):
         super().__init__()
         if decoder_kind != "r2gen":
             raise NotImplementedError(
@@ -46,10 +56,10 @@ class FinetuneModel(nn.Module):
         self.dtype = dtype
         self.fusion_max_partners = fusion_max_partners
         self.is_multiview_learning = is_multiview_learning
-        self.visual_extractor = VisualExtractor(dtype=dtype)
+        self.visual_extractor = VisualExtractor(dtype=dtype, remat=remat_visual)
         self.text_encoder = TextEncoder(vocab_size, encoder_hidden_size, encoder_num_layers,
                                         encoder_num_heads, encoder_intermediate_size,
-                                        dtype=dtype)
+                                        dtype=dtype, dropout_rate=encoder_dropout)
         self.visual_head = ProjectionHead(d_vf, output_dim, output_dim, final_bn=True,
                                           dtype=dtype)
         self.text_head = ProjectionHead(encoder_hidden_size, output_dim, output_dim,
@@ -67,30 +77,55 @@ class FinetuneModel(nn.Module):
             self.visual_self_atten_layers.append(selfl)
         self.text_decoder = RMDecoder(
             vocab_size=vocab_size, d_model=d_model, d_ff=d_ff, d_vf=output_dim,
-            num_layers=num_layers, num_heads=num_heads, rm_num_slots=rm_num_slots,
+            num_layers=num_layers, num_heads=num_heads, dropout_rate=dropout,
+            drop_prob_lm=drop_prob_lm, rm_num_slots=rm_num_slots,
             rm_num_heads=rm_num_heads, rm_d_model=rm_d_model, max_seq_len=max_seq_len,
             dtype=dtype)
 
     def encode(self, images, pid_codes, valid, n_anchor: int,
                inc_ids: Optional[torch.Tensor] = None,
-               inc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """images [B, H, W, 3] (anchors first) -> [n_anchor, 1+P, output_dim]."""
-        patches, avg = self.visual_extractor(images)
+               inc_mask: Optional[torch.Tensor] = None, train: bool = False,
+               rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images [B, H, W, 3] (anchors first) -> [n_anchor, 1+P, output_dim].
+        ``train``: BatchNorms on batch statistics; ``rng``: dropout generator
+        (read only when ``train``)."""
+        rng = rng if train else None
+        patches, avg = self.visual_extractor(images, train)
         image_embed = torch.cat([avg[:, None, :], patches], dim=1)
         if self.is_multiview_learning:
-            fused, _ = self.fusion(image_embed, pid_codes, valid, n_anchor)
+            fused, _ = self.fusion(image_embed, pid_codes, valid, n_anchor, rng)
         else:
             fused = self.fusion.norm_only(image_embed[:n_anchor])
-        x = self.visual_head(fused)
+        x = self.visual_head(fused, train)
         if inc_ids is not None:
-            inc_feats = self.text_head(self.text_encoder(inc_ids, inc_mask))
+            inc_feats = self.text_head(self.text_encoder(inc_ids, inc_mask, rng), train)
             cross_mask = make_cross_mask(inc_mask)
             for layer in self.multimodal_fusion_layers:
-                x = layer(x, inc_feats, self_mask=None, cross_mask=cross_mask)
+                x = layer(x, inc_feats, self_mask=None, cross_mask=cross_mask, rng=rng)
         else:
             for layer in self.visual_self_atten_layers:
-                x = layer(x, mask=None)
+                x = layer(x, mask=None, rng=rng)
         return x
+
+    def forward(self, images, report_ids, report_mask, pid_codes, valid,
+                inc_ids: Optional[torch.Tensor] = None,
+                inc_mask: Optional[torch.Tensor] = None, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The training forward (finetune.py:166-177) -> {"lm", "all_loss"}.
+
+        ``train=True`` runs the BatchNorms on batch statistics (their running
+        update waits for ``layers.commit_batch_stats``); dropout acts only
+        when ``rng`` (a ``torch.Generator`` on the model's device) is given,
+        so ``train=True, rng=None`` is a training step without dropout."""
+        n_anchor = report_ids.shape[0]
+        rng = rng if train else None
+        hidden = self.encode(images, pid_codes, valid, n_anchor, inc_ids, inc_mask,
+                             train=train, rng=rng)
+        att_feats = hidden[:, 1:, :]
+        att_mask = torch.ones(att_feats.shape[:2], dtype=torch.int32, device=hidden.device)
+        log_probs = self.text_decoder(att_feats, att_mask, report_ids, report_mask, rng)
+        lm = lm_loss(log_probs, report_ids, report_mask, sample_mask=valid[:n_anchor])
+        return {"lm": lm, "all_loss": lm}
 
     def encode_for_decode(self, images, pid_codes, valid, n_anchor: int,
                           inc_ids=None, inc_mask=None):

@@ -4,7 +4,10 @@ Anchor i's tokens attend the gradient-stopped tokens of its same-study partner
 views in the whole batch (anchors first, then auxiliary views), then residual
 + LayerNorm; anchors with no partner pass through after the first LayerNorm.
 The LayerNorms are torch ``nn.LayerNorm`` semantics (biased variance, eps
-1e-5). ``wide_qkv`` keeps the reference's per-head dim == d_model.
+1e-5). ``wide_qkv`` keeps the reference's per-head dim == d_model. In
+training the attention probabilities take dropout (rate 0.1) on the dense
+and grouped routes; the kernel route is inference-only, as in JAX
+(fusion.py:164: ``use_pallas and not use_dropout``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention
+from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention, dropout
 from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
 
 
@@ -53,12 +56,15 @@ class BatchedCrossViewAttention(nn.Module):
     over (1+G)*T keys — identical whenever every anchor has <= G partners.
     ``use_pallas=True`` runs the dense form through the fusion-attention
     kernel K3 (``ops/fusion_attention.py``), also when ``max_partners`` is
-    set, as the JAX module does without dropout (this module has none)."""
+    set, as the JAX module does without dropout; with dropout (an ``rng``
+    and a non-zero rate) the module keeps to the plain routes, as JAX does."""
 
     def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
-                 use_pallas: bool = False, max_partners: Any = None, dtype=torch.float32):
+                 use_pallas: bool = False, max_partners: Any = None, dtype=torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.use_pallas = use_pallas
+        self.dropout_rate = dropout_rate
         self.num_heads = num_heads
         self.dk = d_model if wide_qkv else d_model // num_heads
         self.max_partners = max_partners
@@ -68,8 +74,9 @@ class BatchedCrossViewAttention(nn.Module):
         self.fc_v = Dense(d_model, hd, dtype)
         self.fc_o = Dense(hd, d_model, dtype)
 
-    def forward(self, x_q, x_kv, study_mask):
-        """x_q [Q, T, D] anchors; x_kv [B, T, D] whole batch; study_mask [Q, B]."""
+    def forward(self, x_q, x_kv, study_mask, rng=None):
+        """x_q [Q, T, D] anchors; x_kv [B, T, D] whole batch; study_mask [Q, B];
+        ``rng``: dropout generator of the attention probabilities."""
         qn, t, _ = x_q.shape
         b = x_kv.shape[0]
         h, dk = self.num_heads, self.dk
@@ -79,8 +86,11 @@ class BatchedCrossViewAttention(nn.Module):
         k = self.fc_k(kv)
         v = self.fc_v(kv)
         has_partner = study_mask.any(-1)
+        use_dropout = rng is not None and self.dropout_rate > 0.0
+        kernel = self.use_pallas and not use_dropout
+        drop = (lambda p: dropout(p, self.dropout_rate, rng)) if use_dropout else None
 
-        if self.max_partners is not None and not self.use_pallas:
+        if self.max_partners is not None and not kernel:
             g = min(int(self.max_partners), b)
             cols = torch.arange(b, device=dev)[None, :]
             order = torch.sort(torch.where(study_mask, cols, b + cols), dim=1).values[:, :g]
@@ -93,7 +103,7 @@ class BatchedCrossViewAttention(nn.Module):
             kg = kg.reshape(qn, (1 + g) * t, h, dk).transpose(1, 2)
             vg = vg.reshape(qn, (1 + g) * t, h, dk).transpose(1, 2)
             mask4 = slot_valid.repeat_interleave(t, dim=1)[:, None, None, :]
-            out, _ = dot_attention(q, kg, vg, mask=mask4)
+            out, _ = dot_attention(q, kg, vg, mask=mask4, dropout_fn=drop)
             return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
 
         k = k.reshape(b * t, h, dk).transpose(0, 1)                       # [h, B*T, dk]
@@ -101,7 +111,7 @@ class BatchedCrossViewAttention(nn.Module):
         self_mask = ((torch.arange(qn, device=dev)[:, None]
                       == torch.arange(b, device=dev)[None, :]) & ~has_partner[:, None])
         attend = study_mask | self_mask
-        if self.use_pallas:
+        if kernel:
             out = masked_cross_view_attention(q, k, v, attend, t_tokens=t)
         else:
             # the anchors' rows as one [1, h, Q*T, dk] query block: the same
@@ -109,7 +119,8 @@ class BatchedCrossViewAttention(nn.Module):
             # copying k and v once per anchor to broadcast them
             qf = q.transpose(0, 1).reshape(1, h, qn * t, dk)
             mask = attend.repeat_interleave(t, dim=1).repeat_interleave(t, dim=0)
-            out, _ = dot_attention(qf, k[None], v[None], mask=mask[None, None])
+            out, _ = dot_attention(qf, k[None], v[None], mask=mask[None, None],
+                                   dropout_fn=drop)
             out = out[0].reshape(h, qn, t, dk).transpose(0, 1)
         return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
 
@@ -118,23 +129,25 @@ class MultiviewFusion(nn.Module):
     """LN1 -> masked cross-view attention -> residual + LN2 (pass-through when no partner)."""
 
     def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
-                 max_partners: Any = None, dtype=torch.float32):
+                 max_partners: Any = None, dtype=torch.float32, dropout_rate: float = 0.1):
         super().__init__()
         self.layer_norm_1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.layer_norm_2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
         self.cross = BatchedCrossViewAttention(d_model, num_heads, wide_qkv,
-                                               max_partners=max_partners, dtype=dtype)
+                                               max_partners=max_partners, dtype=dtype,
+                                               dropout_rate=dropout_rate)
 
-    def forward(self, image_embed, pid_codes, valid, n_anchor: int
+    def forward(self, image_embed, pid_codes, valid, n_anchor: int, rng=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embed [B, T, D] (anchors first); pid_codes/valid [B] ->
-        (fused [n_anchor, T, D], has_partner [n_anchor])."""
+        (fused [n_anchor, T, D], has_partner [n_anchor]); ``rng``: dropout
+        generator."""
         study_mask = same_study_matrix(pid_codes[:n_anchor], pid_codes,
                                        valid[:n_anchor], valid)
         has_partner = study_mask.any(-1)
         x = self.layer_norm_1(image_embed)
         x_q = x[:n_anchor]
-        fused = self.layer_norm_2(self.cross(x_q, x, study_mask) + x_q)
+        fused = self.layer_norm_2(self.cross(x_q, x, study_mask, rng) + x_q)
         return torch.where(has_partner[:, None, None], fused, x_q), has_partner
 
     def norm_only(self, image_embed):

@@ -1,4 +1,7 @@
-"""Projection heads (port of evoke_tpu/models/heads.py), inference mode."""
+"""Projection heads (port of evoke_tpu/models/heads.py).
+
+``train=True``: the BatchNorms use batch statistics over (batch, token).
+"""
 
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ class SeqBatchNorm(nn.Module):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(features, eps=eps, affine=use_affine, dtype=dtype)
 
-    def forward(self, x):
-        return self.BatchNorm_0(x)
+    def forward(self, x, train: bool = False):
+        return self.BatchNorm_0(x, train)
 
 
 class ProjectionHead(nn.Module):
@@ -34,13 +37,13 @@ class ProjectionHead(nn.Module):
         if final_bn:
             self.SeqBatchNorm_1 = SeqBatchNorm(output_dim, use_affine=False, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """x: [B, T, C_in] -> [B, T, output_dim]; also [B, C_in]."""
         squeeze = x.dim() == 2
         if squeeze:
             x = x[:, None, :]
-        x = F.relu(self.SeqBatchNorm_0(self.Dense_0(x)))
+        x = F.relu(self.SeqBatchNorm_0(self.Dense_0(x), train))
         x = self.Dense_1(x)
         if self.final_bn:
-            x = self.SeqBatchNorm_1(x)
+            x = self.SeqBatchNorm_1(x, train)
         return x[:, 0] if squeeze else x

@@ -12,6 +12,12 @@ Numerics follow flax, not torch habit:
 - ``LayerNorm``/``BatchNorm``: flax semantics (float32 statistics, output cast
   to the compute dtype).
 - ``dot_attention``: -1e9 fill, float32 softmax, probs cast to the V dtype.
+
+Training: every dropout site of the flax module is here with its rate, drawn
+by ``dropout`` from an explicit ``torch.Generator`` passed down as ``rng``
+(``rng=None`` is flax's ``deterministic=True``); ``BatchNorm(train=True)``
+uses batch statistics and leaves its running update pending until
+``commit_batch_stats``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,19 @@ import torch.nn.functional as F
 from evoke_tpu_torch.ops.lineage_attention import lineage_attention
 
 NEG_INF = -1e9
+
+
+def dropout(x, rate: float, rng):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate), the keep mask drawn from the generator ``rng``
+    on ``x``'s device. The identity when ``rng`` is None or ``rate`` is 0."""
+    if rng is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _out_dtype(dtype, x: torch.Tensor) -> torch.dtype:
@@ -99,9 +118,18 @@ class TorchLayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in inference mode (running statistics), over the
-    channel axis ``axis``; float32 math, output in ``dtype``. Training-mode
-    statistics are ROADMAP A10."""
+    """flax ``nn.BatchNorm`` over the channel axis ``axis``; float32 math,
+    output in ``dtype``.
+
+    ``train=False`` normalises with the running statistics. ``train=True``
+    uses the batch's biased mean and variance over every other axis, computed
+    as flax does (var = E[x^2] - E[x]^2, clipped at 0), and leaves the running
+    update ``ra = 0.9 * ra + 0.1 * batch`` (flax's momentum 0.9, every
+    BatchNorm of the model) pending until ``commit()``: a recomputed forward
+    (activation checkpointing) sets the same pending values again, so the
+    update lands once a step."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
                  dtype=None, axis: int = -1):
@@ -109,6 +137,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.axis = axis
+        self._pending = None
         if affine:
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
@@ -118,8 +147,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         out_dt = _out_dtype(self.dtype, x)
+        if train:
+            return self._train_forward(x).to(out_dt)
         if self.axis in (-1, x.ndim - 1) and x.ndim != 2:
             shape = x.shape
             y = F.batch_norm(x.reshape(-1, shape[-1]).float(), self.running_mean,
@@ -130,9 +161,46 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, False, 0.0, self.eps)
         return y.to(out_dt)
 
+    def _train_forward(self, x):
+        axis = self.axis % x.ndim
+        dims = tuple(i for i in range(x.ndim) if i != axis)
+        shape = [1] * x.ndim
+        shape[axis] = x.shape[axis]
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        self._pending = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
+        if self.bias is not None:
+            y = y + self.bias.reshape(shape)
+        return y
 
-def dot_attention(q, k, v, mask=None):
-    """Scaled dot-product attention (layers.py:53-78).
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Apply the running update of the last training-mode forward."""
+        if self._pending is None:
+            return
+        mean, var = self._pending
+        self._pending = None
+        m = self.MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+
+def commit_batch_stats(module: nn.Module) -> None:
+    """``commit()`` every BatchNorm under ``module`` (once per train step,
+    after the backward pass)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.commit()
+
+
+def dot_attention(q, k, v, mask=None, dropout_fn=None):
+    """Scaled dot-product attention (layers.py:53-78); ``dropout_fn`` acts on
+    the float32 probabilities.
 
     q: [B, h, Tq, dk], k: [B, h, Tk, dk], v: [B, h, Tk, dv]
     mask: broadcastable to [B, h, Tq, Tk]; True = attend.
@@ -149,6 +217,8 @@ def dot_attention(q, k, v, mask=None):
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
+    if dropout_fn is not None:
+        probs = dropout_fn(probs)
     out = torch.matmul(probs.to(v.dtype), v)
     return out, probs
 
@@ -156,11 +226,13 @@ def dot_attention(q, k, v, mask=None):
 class MultiHeadAttention(nn.Module):
     """Standard MHA with separate q/k/v/o projections (layers.py:81-163)."""
 
-    def __init__(self, num_heads: int, d_model: int, dtype=torch.float32):
+    def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         assert d_model % num_heads == 0
         self.num_heads = num_heads
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
         self.wq = Dense(d_model, d_model, dtype)
         self.wk = Dense(d_model, d_model, dtype)
         self.wv = Dense(d_model, d_model, dtype)
@@ -177,11 +249,12 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, x):
         return self.wk(x), self.wv(x)
 
-    def attend(self, q_in, k_proj, v_proj, mask=None):
+    def attend(self, q_in, k_proj, v_proj, mask=None, rng=None):
         """Attention with already-projected k/v ([Bk, Tk, D]). When q_in has
         g-times more rows than k_proj (beam-grouped queries, rows sample-major)
         each sample's g query rows attend its single K/V row directly
-        (shared-KV form; ``mask`` must then be [Bk, 1, 1, Tk])."""
+        (shared-KV form; ``mask`` must then be [Bk, 1, 1, Tk]; a decode form,
+        without dropout). ``rng``: dropout generator of the probabilities."""
         bq, tq, _ = q_in.shape
         bk = k_proj.shape[0]
         if bq != bk:
@@ -191,11 +264,13 @@ class MultiHeadAttention(nn.Module):
             out, _ = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask)
             return self.wo(out.transpose(1, 2).reshape(bq, tq, -1))
         q = self._split(self.wq(q_in))
-        out, _ = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask)
+        drop = None if rng is None else (lambda p: dropout(p, self.dropout_rate, rng))
+        out, _ = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask,
+                               dropout_fn=drop)
         return self.wo(self._merge(out))
 
-    def forward(self, q_in, k_in, v_in, mask=None):
-        return self.attend(q_in, self.wk(k_in), self.wv(v_in), mask=mask)
+    def forward(self, q_in, k_in, v_in, mask=None, rng=None):
+        return self.attend(q_in, self.wk(k_in), self.wv(v_in), mask=mask, rng=rng)
 
     def attend_lineage(self, h, cache_k, cache_v, anc, pos, age=None):
         """Ancestor-mode decode attention through the lineage kernel
@@ -231,13 +306,15 @@ def cached_self_attention(attn, h, cache_k, cache_v, pos: int, anc=None, age=Non
 
 
 class PositionwiseFFN(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.Dense_0 = Dense(d_model, d_ff, dtype)
         self.Dense_1 = Dense(d_ff, d_model, dtype)
 
-    def forward(self, x):
-        return self.Dense_1(F.relu(self.Dense_0(x)))
+    def forward(self, x, rng=None):
+        return self.Dense_1(dropout(F.relu(self.Dense_0(x)), self.dropout_rate, rng))
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -256,12 +333,18 @@ class TokenEmbed(nn.Module):
     float32, as in the JAX package."""
 
     def __init__(self, vocab_size: int, d_model: int, max_len: int = 5000,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
         self.lut = Embed(vocab_size, d_model, dtype)
         self.register_buffer("pe", torch.tensor(sinusoidal_pe(max_len, d_model)),
                              persistent=False)
+
+    def forward(self, ids, rng=None):
+        """ids [B, T] -> [B, T, D] with the PE of positions 0..T-1."""
+        x = self.lut(ids) * math.sqrt(self.d_model) + self.pe[None, : ids.shape[1]]
+        return dropout(x, self.dropout_rate, rng)
 
     def at_position(self, ids, pos: int, age=None):
         """ids: [B], pos: step -> [B, 1, D]; age [B]: per-row PE positions."""
@@ -271,10 +354,18 @@ class TokenEmbed(nn.Module):
         return x + self.pe[pos:pos + 1][None]
 
 
-def make_self_mask(pad_mask):
-    """pad_mask: [B, T] (1 = token) -> [B, 1, 1, T] mask over keys (the causal
-    form serves training, ROADMAP A10)."""
-    return pad_mask[:, None, None, :].bool()
+def causal_mask(t: int, device=None):
+    """[1, 1, t, t] lower-triangular boolean mask."""
+    return torch.ones(t, t, dtype=torch.bool, device=device).tril()[None, None]
+
+
+def make_self_mask(pad_mask, causal: bool = False):
+    """pad_mask: [B, T] (1 = token) -> [B, 1, 1, T] mask over keys, or with
+    ``causal`` [B, 1, T, T]."""
+    m = pad_mask[:, None, None, :].bool()
+    if causal:
+        m = m & causal_mask(pad_mask.shape[-1], pad_mask.device)
+    return m
 
 
 def make_cross_mask(kv_pad_mask):
@@ -285,31 +376,36 @@ def make_cross_mask(kv_pad_mask):
 class BertSelfOutput(nn.Module):
     """Dense + post-LN residual (HF Bert*Output contract, LN eps 1e-12)."""
 
-    def __init__(self, in_features: int, hidden_size: int, dtype=torch.float32):
+    def __init__(self, in_features: int, hidden_size: int, dtype=torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.Dense_0 = Dense(in_features, hidden_size, dtype)
         self.LayerNorm_0 = LayerNorm(hidden_size, eps=1e-12, dtype=dtype)
 
-    def forward(self, hidden, residual):
-        return self.LayerNorm_0(self.Dense_0(hidden) + residual)
+    def forward(self, hidden, residual, rng=None):
+        h = dropout(self.Dense_0(hidden), self.dropout_rate, rng)
+        return self.LayerNorm_0(h + residual)
 
 
 class BertAttentionBlock(nn.Module):
     """HF BertAttention: MHA (no output projection inside) + BertSelfOutput."""
 
-    def __init__(self, hidden_size: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, hidden_size: int, num_heads: int, dtype=torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         d = hidden_size
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.wq = Dense(d, d, dtype)
         self.wk = Dense(d, d, dtype)
         self.wv = Dense(d, d, dtype)
-        self.out = BertSelfOutput(d, d, dtype)
+        self.out = BertSelfOutput(d, d, dtype, dropout_rate)
 
     def project_kv(self, x):
         return self.wk(x), self.wv(x)
 
-    def attend(self, x, k_proj, v_proj, mask=None):
+    def attend(self, x, k_proj, v_proj, mask=None, rng=None):
         b, tq, _ = x.shape
         h = self.num_heads
         bk = k_proj.shape[0]
@@ -317,13 +413,14 @@ class BertAttentionBlock(nn.Module):
         q = self.wq(x).reshape(bk, (b // bk) * tq, h, -1).transpose(1, 2)
         k = k_proj.reshape(bk, k_proj.shape[1], h, -1).transpose(1, 2)
         v = v_proj.reshape(bk, v_proj.shape[1], h, -1).transpose(1, 2)
-        ctx, _ = dot_attention(q, k, v, mask=mask)
+        drop = None if rng is None else (lambda p: dropout(p, self.dropout_rate, rng))
+        ctx, _ = dot_attention(q, k, v, mask=mask, dropout_fn=drop)
         ctx = ctx.transpose(1, 2).reshape(b, tq, -1)
-        return self.out(ctx, x)
+        return self.out(ctx, x, rng)
 
-    def forward(self, x, kv, mask=None):
+    def forward(self, x, kv, mask=None, rng=None):
         k, v = self.project_kv(kv)
-        return self.attend(x, k, v, mask=mask)
+        return self.attend(x, k, v, mask=mask, rng=rng)
 
     def attend_lineage(self, x, cache_k, cache_v, anc, pos, age=None):
         """Lineage-kernel attention + this block's post-LN residual output."""
@@ -335,38 +432,40 @@ class BertAttentionBlock(nn.Module):
 class BertFFNBlock(nn.Module):
     """HF BertIntermediate + BertOutput (exact gelu, post-LN residual)."""
 
-    def __init__(self, hidden_size: int, intermediate_size: int, dtype=torch.float32):
+    def __init__(self, hidden_size: int, intermediate_size: int, dtype=torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.Dense_0 = Dense(hidden_size, intermediate_size, dtype)
-        self.BertSelfOutput_0 = BertSelfOutput(intermediate_size, hidden_size, dtype)
+        self.BertSelfOutput_0 = BertSelfOutput(intermediate_size, hidden_size, dtype,
+                                               dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         h = F.gelu(self.Dense_0(x), approximate="none")
-        return self.BertSelfOutput_0(h, x)
+        return self.BertSelfOutput_0(h, x, rng)
 
 
 class BertLayer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.1):
         super().__init__()
-        self.attention = BertAttentionBlock(hidden_size, num_heads, dtype)
-        self.ffn = BertFFNBlock(hidden_size, intermediate_size, dtype)
+        self.attention = BertAttentionBlock(hidden_size, num_heads, dtype, dropout_rate)
+        self.ffn = BertFFNBlock(hidden_size, intermediate_size, dtype, dropout_rate)
 
-    def forward(self, x, mask=None):
-        return self.ffn(self.attention(x, x, mask=mask))
+    def forward(self, x, mask=None, rng=None):
+        return self.ffn(self.attention(x, x, mask=mask, rng=rng), rng)
 
 
 class BertCrossLayer(nn.Module):
     """Self-attn -> cross-attn -> FFN (reference BertCrossLayer)."""
 
     def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.1):
         super().__init__()
-        self.attention = BertAttentionBlock(hidden_size, num_heads, dtype)
-        self.crossattention = BertAttentionBlock(hidden_size, num_heads, dtype)
-        self.ffn = BertFFNBlock(hidden_size, intermediate_size, dtype)
+        self.attention = BertAttentionBlock(hidden_size, num_heads, dtype, dropout_rate)
+        self.crossattention = BertAttentionBlock(hidden_size, num_heads, dtype, dropout_rate)
+        self.ffn = BertFFNBlock(hidden_size, intermediate_size, dtype, dropout_rate)
 
-    def forward(self, x, enc, self_mask=None, cross_mask=None):
-        x = self.attention(x, x, mask=self_mask)
-        x = self.crossattention(x, enc, mask=cross_mask)
-        return self.ffn(x)
+    def forward(self, x, enc, self_mask=None, cross_mask=None, rng=None):
+        x = self.attention(x, x, mask=self_mask, rng=rng)
+        x = self.crossattention(x, enc, mask=cross_mask, rng=rng)
+        return self.ffn(x, rng)

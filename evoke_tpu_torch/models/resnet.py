@@ -2,8 +2,12 @@
 
 Public layout stays NHWC (images [B, H, W, 3]); inside, ``permute(0, 3, 1, 2)``
 gives an NCHW view with channels-last strides, which cuDNN runs as NHWC
-without a copy. Conv weights are OIHW in the compute dtype; BatchNorm runs in
-inference mode with float32 statistics (training-mode BN is ROADMAP A10).
+without a copy. Conv weights are OIHW in the compute dtype; BatchNorm keeps
+float32 statistics (``train=True``: batch statistics, momentum 0.9, eps 1e-5).
+``remat=True`` checkpoints each Bottleneck (``torch.utils.checkpoint``): the
+backward pass recomputes a block's activations instead of keeping them, as
+``nn.remat`` does in the JAX package; BatchNorm's running update stays
+pending through the recomputation, so it lands once a step.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from evoke_tpu_torch.models.layers import BatchNorm
 
@@ -52,19 +57,22 @@ class Bottleneck(nn.Module):
             self.downsample_conv = Conv(cin, features * 4, 1, stride, dtype=dtype)
             self.downsample_bn = _bn(features * 4, dtype)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = self.downsample_bn(self.downsample_conv(x)) if self.project else x
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
+        residual = (self.downsample_bn(self.downsample_conv(x), train) if self.project
+                    else x)
         return F.relu(y + residual)
 
 
 class ResNet101(nn.Module):
     """Backbone through C5. Input NCHW -> [B, 2048, H/32, W/32]."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3), dtype=torch.float32):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3), dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = Conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = _bn(64, dtype)
         self.blocks = []
@@ -78,23 +86,24 @@ class ResNet101(nn.Module):
                 self.blocks.append(blk)
                 cin = features * 4
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x, 3, 2, 1)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = checkpoint(blk, x, train, use_reentrant=False) if remat else blk(x, train)
         return x
 
 
 class VisualExtractor(nn.Module):
     """ResNet-101 -> (patch_feats [B, N, 2048], avg_feats [B, 2048]); images NHWC."""
 
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, remat: bool = False):
         super().__init__()
-        self.backbone = ResNet101(dtype=dtype)
+        self.backbone = ResNet101(dtype=dtype, remat=remat)
 
-    def forward(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats = self.backbone(images.permute(0, 3, 1, 2))     # [B, C, h, w]
+    def forward(self, images, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.backbone(images.permute(0, 3, 1, 2), train)     # [B, C, h, w]
         b, c, h, w = feats.shape
         patches = feats.permute(0, 2, 3, 1).reshape(b, h * w, c)
         return patches, patches.mean(dim=1)

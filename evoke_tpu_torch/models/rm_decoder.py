@@ -13,7 +13,14 @@ Dtypes follow the JAX package, which rounds at these places (bf16 compute):
 
 Unlike JAX, ``decode_step`` writes the new K/V into the caches IN PLACE (the
 returned state holds the same cache tensors): a decode state is used once.
-The training forward (``decode_train``) and the int8 cache are ROADMAP A10/A12a.
+The int8 cache is ROADMAP A12a.
+
+Training (``forward`` / ``decode_train``, teacher-forced over the whole
+report): the relational memory rolls over the target embeddings one step at a
+time (a Python loop where JAX scans) with its own attention dropout of 0.1;
+``drop_prob_lm`` drops the embedded image tokens and ``dropout_rate`` acts in
+every sublayer, as in the JAX module. Dropout draws from the generator
+``rng``; ``rng=None`` is deterministic.
 """
 
 from __future__ import annotations
@@ -26,17 +33,22 @@ import torch.nn.functional as F
 
 from evoke_tpu_torch.models.layers import (Dense, MultiHeadAttention, PositionwiseFFN,
                                            TokenEmbed, TorchLayerNorm,
-                                           cached_self_attention, make_cross_mask)
+                                           cached_self_attention, dropout, make_cross_mask,
+                                           make_self_mask)
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
 
 
 class RelationalMemory(nn.Module):
-    """Gated slot memory rolled over target embeddings (float32)."""
+    """Gated slot memory rolled over target embeddings (float32). Its
+    attention carries dropout ``attn_dropout`` (the reference's MHA default,
+    which no config field turns off)."""
 
-    def __init__(self, num_slots: int, d_model: int, num_heads: int = 8):
+    def __init__(self, num_slots: int, d_model: int, num_heads: int = 8,
+                 attn_dropout: float = 0.1):
         super().__init__()
         self.num_slots, self.d_model = num_slots, d_model
-        self.attn = MultiHeadAttention(num_heads, d_model, dtype=torch.float32)
+        self.attn = MultiHeadAttention(num_heads, d_model, dtype=torch.float32,
+                                       dropout_rate=attn_dropout)
         self.mlp1 = Dense(d_model, d_model)
         self.mlp2 = Dense(d_model, d_model)
         self.W = Dense(d_model, 2 * d_model)
@@ -50,18 +62,27 @@ class RelationalMemory(nn.Module):
                if d > s else eye[:, :d])
         return mem.reshape(1, s * d).repeat(batch_size, 1)
 
-    def step(self, x_t, memory):
+    def step(self, x_t, memory, rng=None):
         """x_t [B, D], memory [B, S*D] -> next [B, S*D]."""
         b = x_t.shape[0]
         s, d = self.num_slots, self.d_model
         mem = memory.reshape(b, s, d)
         kv = torch.cat([mem, x_t[:, None, :]], dim=1)
-        nxt = mem + self.attn(mem, kv, kv)
+        nxt = mem + self.attn(mem, kv, kv, rng=rng)
         nxt = nxt + F.relu(self.mlp2(F.relu(self.mlp1(nxt))))
         gates = self.W(x_t[:, None, :]) + self.U(torch.tanh(mem))
         input_gate, forget_gate = gates.split(d, dim=-1)
         nxt = torch.sigmoid(input_gate) * torch.tanh(nxt) + torch.sigmoid(forget_gate) * mem
         return nxt.reshape(b, s * d)
+
+    def roll(self, xs, rng=None):
+        """xs [B, T, D] -> the memory after each step [B, T, S*D]."""
+        mem = self.init_memory(xs.shape[0], xs.device)
+        outs = []
+        for t in range(xs.shape[1]):
+            mem = self.step(xs[:, t], mem, rng)
+            outs.append(mem)
+        return torch.stack(outs, dim=1)
 
 
 class ConditionalLayerNorm(nn.Module):
@@ -92,31 +113,46 @@ class ConditionalLayerNorm(nn.Module):
 class EncoderLayer(nn.Module):
     """Pre-LN self-attention + FFN."""
 
-    def __init__(self, d_model: int, d_ff: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, num_heads: int, dtype=torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype)
-        self.ff = PositionwiseFFN(d_model, d_ff, dtype)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, dropout_rate)
+        self.ff = PositionwiseFFN(d_model, d_ff, dtype, dropout_rate)
         self.norm1 = TorchLayerNorm(d_model, dtype=dtype)
         self.norm2 = TorchLayerNorm(d_model, dtype=dtype)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, rng=None):
+        p = self.dropout_rate
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, h, mask=mask)
-        return x + self.ff(self.norm2(x))
+        x = x + dropout(self.self_attn(h, h, h, mask=mask, rng=rng), p, rng)
+        return x + dropout(self.ff(self.norm2(x), rng), p, rng)
 
 
 class RMDecoderLayer(nn.Module):
-    """Decoder layer with conditional-LN sublayers; decode-step form only."""
+    """Decoder layer with conditional-LN sublayers: the full-sequence form
+    (``forward``, training) and the decode step."""
 
     def __init__(self, d_model: int, d_ff: int, num_heads: int, mem_dim: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout_rate: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype)
-        self.src_attn = MultiHeadAttention(num_heads, d_model, dtype)
-        self.ff = PositionwiseFFN(d_model, d_ff, dtype)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, dropout_rate)
+        self.src_attn = MultiHeadAttention(num_heads, d_model, dtype, dropout_rate)
+        self.ff = PositionwiseFFN(d_model, d_ff, dtype, dropout_rate)
         self.cln1 = ConditionalLayerNorm(d_model, mem_dim)
         self.cln2 = ConditionalLayerNorm(d_model, mem_dim)
         self.cln3 = ConditionalLayerNorm(d_model, mem_dim)
+
+    def forward(self, x, enc, self_mask, cross_mask, memory, rng=None):
+        """x [B, T, D]; enc [B, P, D]; memory [B, T, S*D]."""
+        p = self.dropout_rate
+        h = self.cln1(x, memory)
+        x = x + dropout(self.self_attn(h, h, h, mask=self_mask, rng=rng), p, rng)
+        h = self.cln2(x, memory)
+        x = x + dropout(self.src_attn(h, enc, enc, mask=cross_mask, rng=rng), p, rng)
+        h = self.cln3(x, memory)
+        return x + dropout(self.ff(h, rng), p, rng)
 
     def prepare_cross_kv(self, enc):
         return self.src_attn.project_kv(enc)
@@ -137,10 +173,12 @@ class RMDecoderLayer(nn.Module):
 
 
 class RMDecoder(nn.Module):
-    """Image-token encoder + relational-memory decoder (inference surface)."""
+    """Image-token encoder + relational-memory decoder: the training forward
+    (log-probs [B, T, V+1]) and the decode surface."""
 
     def __init__(self, vocab_size: int, d_model: int = 512, d_ff: int = 512,
                  d_vf: int = 2048, num_layers: int = 3, num_heads: int = 8,
+                 dropout_rate: float = 0.0, drop_prob_lm: float = 0.5,
                  rm_num_slots: int = 3, rm_num_heads: int = 8, rm_d_model: int = 512,
                  max_seq_len: int = 100, dtype=torch.float32):
         super().__init__()
@@ -148,29 +186,49 @@ class RMDecoder(nn.Module):
             raise ValueError("rm_d_model must equal d_model")
         self.vocab_size, self.d_model = vocab_size, d_model
         self.num_layers, self.max_seq_len, self.dtype = num_layers, max_seq_len, dtype
+        self.drop_prob_lm = drop_prob_lm
         self.att_embed = Dense(d_vf, d_model, dtype)
         self.enc_layers, self.dec_layers = [], []
         for i in range(num_layers):
-            enc = EncoderLayer(d_model, d_ff, num_heads, dtype)
+            enc = EncoderLayer(d_model, d_ff, num_heads, dtype, dropout_rate)
             self.add_module(f"enc_{i}", enc)
             self.enc_layers.append(enc)
         self.enc_norm = TorchLayerNorm(d_model, dtype=dtype)
         for i in range(num_layers):
-            dec = RMDecoderLayer(d_model, d_ff, num_heads, rm_num_slots * rm_d_model, dtype)
+            dec = RMDecoderLayer(d_model, d_ff, num_heads, rm_num_slots * rm_d_model, dtype,
+                                 dropout_rate)
             self.add_module(f"dec_{i}", dec)
             self.dec_layers.append(dec)
         self.dec_norm = TorchLayerNorm(d_model, dtype=dtype)
-        self.tgt_embed = TokenEmbed(vocab_size + 1, d_model, dtype=dtype)
+        self.tgt_embed = TokenEmbed(vocab_size + 1, d_model, dtype=dtype,
+                                    dropout_rate=dropout_rate)
         self.rm = RelationalMemory(rm_num_slots, rm_d_model, rm_num_heads)
         self.logit = Dense(d_model, vocab_size + 1, dtype)
 
-    def encode(self, att_feats, att_mask):
+    def encode(self, att_feats, att_mask, rng=None):
         """att_feats [B, P, d_vf], att_mask [B, P] -> [B, P, d_model]."""
         x = F.relu(self.att_embed(att_feats * att_mask[..., None]))
+        x = dropout(x, self.drop_prob_lm, rng)
         mask = make_cross_mask(att_mask)
         for layer in self.enc_layers:
-            x = layer(x, mask=mask)
+            x = layer(x, mask=mask, rng=rng)
         return self.enc_norm(x)
+
+    def forward(self, att_feats, att_mask, tgt_ids, tgt_mask, rng=None):
+        """Teacher-forced forward -> float32 log-probs [B, T, V+1]."""
+        enc = self.encode(att_feats, att_mask, rng)
+        return self.decode_train(enc, att_mask, tgt_ids, tgt_mask, rng)
+
+    def decode_train(self, enc, att_mask, tgt_ids, tgt_mask, rng=None):
+        x = self.tgt_embed(tgt_ids, rng)
+        mem = self.rm.roll(x, rng)
+        self_mask = make_self_mask(tgt_mask, causal=True)
+        cross_mask = make_cross_mask(att_mask)
+        for layer in self.dec_layers:
+            x = layer(x, enc, self_mask, cross_mask, mem, rng)
+        logits = self.logit(self.dec_norm(x))
+        # upcast inside the softmax: no separate float32 copy of the logits
+        return torch.log_softmax(logits, dim=-1, dtype=torch.float32)
 
     def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None
                           ) -> Dict[str, Any]:

@@ -1,4 +1,12 @@
-"""Report generation step (port of the beam path of evoke_tpu/train/steps.py).
+"""Train, eval and report generation steps (port of evoke_tpu/train/steps.py).
+
+``TrainState`` holds the step count, the model (its parameters, in the
+compute dtype, and its BatchNorm statistics) and the optimizer (float32
+masters and moments). ``make_train_step`` returns ``train_step(state, batch)
+-> metrics``: the training forward with dropout drawn from a generator
+seeded by (seed, step, task), the backward pass, BatchNorm's running update,
+then the optax chain (``train/optim.py``); the metrics stay on the device.
+``make_eval_step`` is the same forward with ``train=False``.
 
 ``make_generate_step`` returns ``generate_step(batch) -> seqs`` over a model
 that holds its own weights. The serving policy follows the JAX package's TPU
@@ -7,7 +15,7 @@ kernel, an 8-phase cache schedule and the fused logit + top-k tail (on CPU
 tensors the kernels' plain versions run); eval paths (``serving=False``)
 resolve to reorder caches, one phase and the unfused tail, as in JAX. Only
 the beam path (beam_size > 1, group_size 1) is ported; greedy / sampled /
-diverse decoding and int8 caches are ROADMAP A12a, the train and eval steps A10.
+diverse decoding and int8 caches are ROADMAP A12a.
 
 ``logits_hook`` / ``topk_hook`` are the load-testing surface of the JAX
 package's ``make_generate_step``: they rewrite each step's candidates (for
@@ -17,10 +25,16 @@ can be measured on a controlled length mix with random weights.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping
+
 import torch
 
+from evoke_tpu_torch.core import prng
 from evoke_tpu_torch.core.device import resolve_device
 from evoke_tpu_torch.decode.beam import BeamLoop
+from evoke_tpu_torch.models.layers import commit_batch_stats
+from evoke_tpu_torch.train.optim import Optimizer
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -35,6 +49,97 @@ def maybe_normalize_images(batch):
         batch = dict(batch)
         batch["images"] = (images.float() / 255.0 - mean) / std
     return batch
+
+
+def _model_args(batch, with_indication: bool):
+    args = [batch["images"], batch["ids"], batch["mask"], batch["pids"], batch["valid"]]
+    if with_indication:
+        args += [batch["inc_ids"], batch["inc_mask"]]
+    return args
+
+
+@dataclass
+class TrainState:
+    """A run's state: ``step`` (a host count of train steps), the model and
+    its optimizer. ``state_dict`` is what a checkpoint holds: the float32
+    parameters (the optimizer's masters), the BatchNorm statistics, the
+    optimizer's moments and counters, and the step."""
+
+    model: torch.nn.Module
+    opt: Optimizer
+    step: int = 0
+
+    def buffers(self) -> Dict[str, torch.Tensor]:
+        """The model's saved buffers (BatchNorm statistics)."""
+        params = dict(self.model.named_parameters())
+        return {k: v for k, v in self.model.state_dict().items() if k not in params}
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"step": self.step, "params": self.opt.masters(), "buffers": self.buffers(),
+                "opt": self.opt.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: Mapping[str, Any]) -> None:
+        """Full restore: every parameter, buffer and optimizer slot must be
+        there with its shape."""
+        masters = self.opt.masters()
+        buffers = self.buffers()
+        for want, have, what in ((masters, d["params"], "parameters"),
+                                 (buffers, d["buffers"], "buffers")):
+            missing = sorted(set(want) - set(have))
+            bad = sorted(k for k in set(want) & set(have)
+                         if tuple(want[k].shape) != tuple(have[k].shape))
+            if missing or bad:
+                raise KeyError(f"checkpoint {what}: missing {missing[:10]}, shape "
+                               f"mismatch {bad[:10]}")
+        self.opt.load_masters(d["params"])
+        for k, b in buffers.items():
+            b.copy_(d["buffers"][k])
+        self.opt.load_state_dict(d["opt"])
+        self.step = int(d["step"])
+
+
+def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss",
+                    with_indication: bool = False, task: str = "finetune",
+                    dropout: bool = True):
+    """-> ``train_step(state, batch) -> metrics`` (the model's output dict,
+    detached, on the device; nothing is read back).
+
+    ``batch`` holds tensors on the model's device: images [B, H, W, 3] (uint8
+    is normalised on the device), ids / mask [n_anchor, T], pids, valid [B]
+    and, ``with_indication``, inc_ids / inc_mask. Dropout masks of step ``s``
+    come from ``prng.step_generator(seed, s, f"{task}-dropout")``, so a
+    resumed run draws what an unbroken run draws; ``dropout=False`` trains
+    with dropout off (BatchNorm still on batch statistics)."""
+    name = f"{task}-dropout"
+
+    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        batch = maybe_normalize_images(batch)
+        device = batch["ids"].device
+        rng = prng.step_generator(seed, state.step, name, device) if dropout else None
+        out = model(*_model_args(batch, with_indication), train=True, rng=rng)
+        out[loss_key].backward()
+        commit_batch_stats(model)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        opt.step(grads)
+        for p in model.parameters():
+            p.grad = None
+        state.step += 1
+        return {k: v.detach() for k, v in out.items()}
+
+    return train_step
+
+
+def make_eval_step(model, with_indication: bool = False):
+    """-> ``eval_step(state, batch) -> metrics``: the forward with
+    ``train=False`` (running statistics, no dropout), no gradients."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        batch = maybe_normalize_images(batch)
+        return model(*_model_args(batch, with_indication), train=False)
+
+    return eval_step
 
 
 def resolve_beam_kv(decode_cfg, serving: bool) -> str:

@@ -206,12 +206,18 @@ def test_state_dict_loader_round_trip(tmp_path):
 
 # ---- the CLI ----
 
-def test_cli_help_unknown_and_unported(dataset, capsys):
+def test_cli_help_unknown_and_unported(dataset, capsys, tmp_path):
     assert tcli.main([]) == 0
     assert "serve" in capsys.readouterr().out
     assert tcli.main(["frobnicate"]) == 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(["finetune", "--device", "cpu"])
+    root, ann = dataset
+    assert tcli.main(["finetune", "--device", "cpu", "--data.ann_path", ann,
+                      "--data.image_dir", root, "--data.tokenizer_dir", str(tmp_path / "tok"),
+                      "--trainer.result_dir", str(tmp_path)] + TINY) == 0
+    assert os.path.exists(os.path.join(str(tmp_path), "mimic_cxr", "finetune", "v1",
+                                       "checkpoint", "current", "state.pt"))
+    with pytest.raises(NotImplementedError, match="A11"):
+        tcli.main(["pretrain", "--device", "cpu"])
     with pytest.raises(ValueError, match="decode.engine='frobnicate'"):
         tcli.main(["serve", "--device", "cpu", "--decode.engine", "frobnicate"])
     with pytest.raises(NotImplementedError, match="A13"):

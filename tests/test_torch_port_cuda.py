@@ -679,3 +679,141 @@ class TestContinuousGraphs:
         per = srv.loop._ledger.per_graph
         assert {per[key] for key in per if key[0] == "step"} == {(3, 1)}
         assert {per[key] for key in per if key[0] == "head"} == {(0, 0)}
+
+
+# ---- finetune training on the card ----
+
+# tests/_torch_port_util.TINY (that module imports JAX, absent on the card's machine)
+TRAIN_TINY = dict(output_dim=64, encoder_hidden_size=32, encoder_num_layers=1,
+                  encoder_num_heads=2, encoder_intermediate_size=64, d_model=32, d_ff=64,
+                  num_heads=2, num_layers=2, rm_num_slots=3, rm_d_model=32,
+                  fusion_num_heads=2, fusion_intermediate_size=64, sk_fusion_num_layers=1,
+                  max_seq_len=16, fusion_wide_qkv=False)
+TRAIN_LR = dict(pt_lr=1e-2, ft_lr=3e-2, weight_decay=1e-4, grad_clip_value=0.1)
+
+
+def _train_batch(seed, n_anchor=2, image_size=64, seq=16, vocab=50):
+    rng = np.random.default_rng(seed)
+    total = 2 * n_anchor
+    b = {"images": rng.normal(size=(total, image_size, image_size, 3)).astype(np.float32),
+         "ids": rng.integers(5, vocab - 3, size=(n_anchor, seq)).astype(np.int32),
+         "mask": np.ones((n_anchor, seq), np.int32),
+         "pids": np.concatenate([np.arange(n_anchor), np.arange(n_anchor)]).astype(np.int32),
+         "valid": np.ones(total, bool),
+         "inc_ids": rng.integers(5, vocab - 3, size=(n_anchor, seq)).astype(np.int32),
+         "inc_mask": np.ones((n_anchor, seq), np.int32)}
+    b["mask"][-1, seq * 3 // 4:] = 0
+    b["valid"][-1] = False
+    b["images"][-1] = 0.0
+    return b
+
+
+def _tiny_train_model(seed=0, **kw):
+    """The TINY flagship on the CPU, seeded, each Bottleneck's bn3 scale x 0.1
+    (a well-conditioned batch-statistics forward at 4 images)."""
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.params import init_params_
+
+    model = init_params_(FinetuneModel(vocab_size=50, **TRAIN_TINY, **kw), seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.weight"):
+                p.mul_(0.1)
+    return model
+
+
+def _one_step(model, batch, dropout=False, opt_name="RAdam"):
+    """(loss, the gradients the optimizer got, the updated parameters), on the CPU."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    opt = build_optimizer(opt_name, "finetune", model, **TRAIN_LR)
+    seen, step = {}, opt.step
+    opt.step = lambda g: seen.update({k: v.detach().float().cpu() for k, v in g.items()
+                                      if v is not None}) or step(g)
+    out = make_train_step(model, opt, 0, with_indication=True, dropout=dropout)(
+        TrainState(model, opt), batch)
+    return (float(out["lm"]), seen,
+            {n: p.detach().float().cpu() for n, p in model.named_parameters()})
+
+
+class TestTraining:
+    """The finetune train step on the card. Card against CPU at float32, TF32
+    off: the loss 1e-4 relative; gradients outside the ResNet 1e-3 of (the
+    leaf's largest + 1e-3 of the largest gradient), the ResNet's 3e-2 in L2
+    norm relative (33 batch-statistics BatchNorm blocks over 4 images amplify
+    float32 rounding: the port's float32 step on one CPU is only that close to
+    its float64 step); updated parameters within the learning rate times
+    their gradient's difference plus 1e-6 relative."""
+
+    def test_tiny_float32_step_card_equals_cpu(self, cuda_device):
+        import copy
+
+        model = _tiny_train_model()
+        b = _train_batch(1)
+        cpu = _one_step(copy.deepcopy(model), {k: torch.as_tensor(v) for k, v in b.items()})
+        card = _one_step(copy.deepcopy(model).to(cuda_device),
+                         {k: torch.as_tensor(v).to(cuda_device) for k, v in b.items()})
+        assert math.isclose(card[0], cpu[0], rel_tol=1e-4)
+        gmax = max(g.abs().max().item() for g in cpu[1].values())
+        num = den = 0.0
+        for n, want in cpu[1].items():
+            got = card[1][n]
+            if n.startswith("visual_extractor."):
+                num += float(((got - want) ** 2).sum())
+                den += float((want ** 2).sum())
+                continue
+            assert (got - want).abs().max() <= 1e-3 * (want.abs().max() + 1e-3 * gmax), n
+        assert math.sqrt(num / den) <= 3e-2
+        for n, want in cpu[2].items():
+            lr = TRAIN_LR["ft_lr"] if any(s in n for s in (
+                "text_decoder", "visual_self_atten", "multimodal_fusion", "visual_head",
+                "text_head")) else TRAIN_LR["pt_lr"]
+            zero = torch.zeros_like(want)
+            g_err = (card[1].get(n, zero) - cpu[1].get(n, zero)).abs()
+            assert ((card[2][n] - want).abs()
+                    <= lr * g_err * 1.01 + 1e-6 * want.abs() + 1e-7).all(), n
+
+    def test_remat_visual_same_loss_and_gradients(self, cuda_device):
+        """Bottlenecks checkpointed (recomputed in the backward pass) give the
+        step without it, BatchNorm's running update landing once. Gradients
+        within 1e-4 of each leaf's largest: cuDNN's weight-gradient kernels
+        accumulate in an order that varies between runs (seen: 1.9e-6 on a
+        conv weight), where a recomputation that differed, or a second
+        running update, would move them by O(1)."""
+        import copy
+
+        model = _tiny_train_model().to(cuda_device)
+        remat = _tiny_train_model(remat_visual=True).to(cuda_device)
+        remat.load_state_dict(model.state_dict())
+        b = {k: torch.as_tensor(v).to(cuda_device) for k, v in _train_batch(2).items()}
+        plain = _one_step(model, b, dropout=True)
+        again = _one_step(remat, b, dropout=True)
+        assert math.isclose(again[0], plain[0], rel_tol=1e-6)
+        for n, g in plain[1].items():
+            assert (again[1][n] - g).abs().max() <= 1e-4 * g.abs().max(), n
+        for (n, x), (_, y) in zip(model.state_dict().items(), remat.state_dict().items()):
+            torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6, msg=n)
+
+    def test_bf16_full_width_step_is_finite(self, cuda_device):
+        """Flagship widths (ResNet-101, wide-qkv fusion, 768x6 encoder, R2Gen
+        512 x 3, 30001 logits) in bf16 over float32 masters, 2 + 2 images at
+        224 px, 100 tokens: a finite loss, finite gradients and parameters, bf16
+        parameters that moved (an update below half a bf16 ulp leaves the
+        parameter and moves only its float32 master)."""
+        from evoke_tpu_torch.models.finetune import FinetuneModel
+        from evoke_tpu_torch.params import init_params_
+
+        with torch.device(cuda_device):
+            model = FinetuneModel(vocab_size=30000, max_seq_len=100, dtype=torch.bfloat16)
+        init_params_(model, 0)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        b = {k: torch.as_tensor(v).to(cuda_device)
+             for k, v in _train_batch(3, image_size=224, seq=100, vocab=30000).items()}
+        loss, grads, params = _one_step(model, b, dropout=True)
+        assert math.isfinite(loss)
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        assert all(torch.isfinite(p).all() for p in params.values())
+        assert model.text_decoder.logit.weight.dtype == torch.bfloat16
+        moved = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])]
+        assert "text_decoder.logit.bias" in moved

@@ -501,12 +501,35 @@ def test_test_cli_without_pandas_sklearn_nltk_transformers(cli_runs, tmp_path, m
     assert tcli.main(["score", "--data.ann_path", path]) == 0
 
 
-def test_test_cli_refusals(cli_runs, monkeypatch):
+def test_test_cli_refusals(cli_runs, monkeypatch, scorers, fake_chexbert, tmp_path):
     common = cli_runs["common"]
     with pytest.raises(NotImplementedError, match="A12b"):
         tcli.main(["test", "--device", "cpu", "--trainer.plot_heatmaps", "2"] + common)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(["test", "--device", "cpu", "--trainer.resume", "auto"] + common)
+    # --trainer.resume auto, as JAX's Tester does through BaseTrainer._resume:
+    # no slot yet starts fresh; a slot's weights are restored
+    monkeypatch.setitem(tcomposite._SCORER_CACHE, f"chexbert:{fake_chexbert[0]}:cpu",
+                        scorers[1])
+    argv = list(common)
+    argv[argv.index("--trainer.result_dir") + 1] = str(tmp_path)
+    assert tcli.main(["test", "--device", "cpu", "--trainer.resume", "auto"] + argv) == 0
+    res = os.path.join(str(tmp_path), "mimic_cxr", "test", "v1")
+    assert "resume=auto: no checkpoint yet" in open(os.path.join(res, "test.log")).read()
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState
+
+    cfg = tconfig.load_config(None, overrides={"trainer.task": "test"}, argv=argv)
+    vocab = json.load(open(os.path.join(cli_runs["torch"], "config.json")))["vocab_size"]
+    model = tcli.build_model(cfg, vocab, "cpu")
+    tcheckpoint.partial_restore_from(cli_runs["weights"], model)
+    state = TrainState(model, build_optimizer("RAdam", "finetune", model, pt_lr=1e-3,
+                                              ft_lr=1e-3, weight_decay=0.0))
+    tcheckpoint.CheckpointManager(os.path.join(res, "checkpoint")).save(
+        "current", state, {"epoch": 4})
+    os.remove(os.path.join(res, "test_prediction.csv"))
+    assert tcli.main(["test", "--device", "cpu", "--trainer.resume", "auto"] + argv) == 0
+    assert "resumed from current: epoch 5" in open(os.path.join(res, "test.log")).read()
+    assert open(os.path.join(res, "test_prediction.csv"), "rb").read() == open(
+        os.path.join(cli_runs["torch"], "test_prediction.csv"), "rb").read()
     with pytest.raises(NotImplementedError, match="A11"):
         tcli.main(["retrieve", "--device", "cpu"] + common)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
