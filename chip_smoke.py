@@ -117,7 +117,31 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    train / 16 val / 16 test studies, 30000 words) for 1 epoch, then
    ``--trainer.resume auto`` for a second: the current slot, the epoch-2
    start, the run's files, K1 = K2 = K3 = 0 launches;
-10. a JSON line of every ported kernel (launches: phase 4's captured run),
+10. stage-1 pretraining and knowledge retrieval: (a) the pretrain step at
+   full width (ResNet-101 @ 224, dense wide-qkv fusion, 768x6 text encoder,
+   2048-wide heads; ``pretrain_loss all`` with soft targets), bf16 over
+   float32 masters, 32 anchors + 32 aux at 224 px, uint8 images, 100-token
+   keyword texts (masks of 40 and 60 tokens), RAdam in one group, clip 0.1,
+   dropout on, 20 steps as phase 9 (a) runs them: median ms, studies/s,
+   launches, device ms and busy share of one profiled step, peak GiB, the
+   loss falling, K1 = K2 = K3 = 0; (b) one TINY float32 pretrain step card
+   against CPU within ``TRAIN_TOL``, and the five contrastive losses at
+   full shape (64 images, D 2048, T 99, P 49) at float32, card against CPU
+   within ``LOSS_TOL``; (c) retrieval: ``encode_images`` over 4 batches of
+   the loader's layout (64 anchors + 64 aux, uint8) at full width in bf16
+   (ms a batch), then
+   ``TopKIndex.search`` with k 20 over a seeded float16 database of 16,384 x
+   102,400 rows (3.2 GiB in pinned host memory, streamed in chunks of
+   4,096) for 1,024 queries: wall, rows/s, the GEMM's TFLOP/s, the bytes
+   copied host -> device and that copy's time alone, the bound (FLOPs over
+   the float32 peak or bytes over the 64 GB/s link, the larger); 64 queries
+   against a float64 search on the CPU, ids equal wherever the float64
+   margin exceeds the printed float32 error bound; (d) ``cli pretrain`` (1
+   epoch), ``cli retrieve`` from its ``current`` slot and ``cli finetune``
+   over the augmented annotation seeded from that slot (1 epoch), over phase
+   9 (c)'s dataset at every default but bf16: walls, the partial-load report,
+   K1 = K2 = K3 = 0;
+11. a JSON line of every ported kernel (launches: phase 4's captured run),
    then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -1303,13 +1327,14 @@ TRAIN_TOL = dict(loss=1e-4, grad=1e-3, resnet_l2=3e-2)
 TRAIN_LR = dict(pt_lr=1e-2, ft_lr=3e-2, weight_decay=1e-4, grad_clip_value=0.1)
 
 
-def train_case(model, opt_name, lr, batch, with_indication, dropout=True, seed=0):
-    """One train step of ``model`` (a copy is not made): (loss, the gradients
-    the optimizer was given, the updated parameters)."""
+def train_case(model, opt_name, lr, batch, with_indication, dropout=True, seed=0,
+               task="finetune"):
+    """One train step of ``model`` (a copy is not made): (the step's metrics,
+    the gradients the optimizer was given, the updated parameters)."""
     from evoke_tpu_torch.train.optim import build_optimizer
     from evoke_tpu_torch.train.steps import TrainState, make_train_step
 
-    opt = build_optimizer(opt_name, "finetune", model, **lr)
+    opt = build_optimizer(opt_name, task, model, **lr)
     seen = {}
     step = opt.step
 
@@ -1318,19 +1343,28 @@ def train_case(model, opt_name, lr, batch, with_indication, dropout=True, seed=0
         return step(grads)
 
     opt.step = recording
-    out = make_train_step(model, opt, seed, with_indication=with_indication,
+    out = make_train_step(model, opt, seed, with_indication=with_indication, task=task,
                           dropout=dropout)(TrainState(model, opt), batch)
     params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
-    return float(out["lm"]), seen, params
+    return {k: float(v) for k, v in out.items()}, seen, params
 
 
-def tiny_train_model(dtype=torch.float32, seed=0, **kw):
-    """The TINY flagship on the CPU, seeded, each Bottleneck's bn3 scale x 0.1
+def tiny_train_model(dtype=torch.float32, seed=0, task="finetune", **kw):
+    """The TINY model of ``task`` (the flagship, or the pretrain model at its
+    share of the dims) on the CPU, seeded, each Bottleneck's bn3 scale x 0.1
     (keeps the batch-statistics forward well conditioned at 4 images)."""
     from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.models.pretrain import PretrainModel
     from evoke_tpu_torch.params import init_params_
 
-    model = init_params_(FinetuneModel(vocab_size=50, dtype=dtype, **TRAIN_TINY, **kw), seed)
+    if task == "pretrain":
+        dims = {k: TRAIN_TINY[k] for k in ("output_dim", "encoder_hidden_size",
+                                            "encoder_num_layers", "encoder_num_heads",
+                                            "encoder_intermediate_size", "fusion_wide_qkv")}
+        model = PretrainModel(vocab_size=50, dtype=dtype, **dims, **kw)
+    else:
+        model = FinetuneModel(vocab_size=50, dtype=dtype, **TRAIN_TINY, **kw)
+    model = init_params_(model, seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bn3.weight"):
@@ -1338,9 +1372,10 @@ def tiny_train_model(dtype=torch.float32, seed=0, **kw):
     return model
 
 
-def train_card_vs_cpu(dev, seed):
-    """Phase 9 (b): one TINY float32 train step (RAdam, two groups, dropout
-    off, BatchNorm on batch statistics) on the card and on the CPU."""
+def train_card_vs_cpu(dev, seed, task="finetune"):
+    """Phase 9 (b) / 10 (b): one TINY float32 train step of ``task`` (RAdam:
+    two groups for finetune, one for pretrain; dropout off, BatchNorm on batch
+    statistics) on the card and on the CPU."""
     import copy
 
     rng = np.random.default_rng(seed + 11)
@@ -1348,13 +1383,16 @@ def train_card_vs_cpu(dev, seed):
     bt["mask"][1, 12:] = 0
     bt["valid"][3] = False
     bt["images"][3] = 0.0
-    model = tiny_train_model(seed=seed)
+    model = tiny_train_model(seed=seed, task=task)
+    finetune = task == "finetune"
     cpu = train_case(copy.deepcopy(model), "RAdam", TRAIN_LR,
-                     {k: torch.as_tensor(v) for k, v in bt.items()}, True, dropout=False)
+                     {k: torch.as_tensor(v) for k, v in bt.items()}, finetune, dropout=False,
+                     task=task)
     card = train_case(copy.deepcopy(model).to(dev), "RAdam", TRAIN_LR,
-                      {k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, True,
-                      dropout=False)
-    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+                      {k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, finetune,
+                      dropout=False, task=task)
+    key = "lm" if finetune else "all_loss"
+    loss_err = max(abs(card[0][k] - v) / max(abs(v), 1e-6) for k, v in cpu[0].items())
     gmax = max(g.abs().max().item() for g in cpu[1].values())
     worst, resnet = 0.0, [0.0, 0.0]
     for name, want in cpu[1].items():
@@ -1368,7 +1406,7 @@ def train_card_vs_cpu(dev, seed):
     resnet_l2 = math.sqrt(resnet[0] / resnet[1])
     bad_params = []
     for name, want in cpu[2].items():
-        lr = TRAIN_LR["ft_lr"] if any(s in name for s in (
+        lr = TRAIN_LR["ft_lr"] if finetune and any(s in name for s in (
             "text_decoder", "visual_self_atten", "multimodal_fusion", "visual_head",
             "text_head")) else TRAIN_LR["pt_lr"]
         g_err = (card[1].get(name, torch.zeros_like(want))
@@ -1376,29 +1414,35 @@ def train_card_vs_cpu(dev, seed):
         if ((card[2][name] - want).abs() > lr * g_err * 1.01 + 1e-6 * want.abs()
                 + 1e-7).any():
             bad_params.append(name)
-    out = dict(loss_cpu=cpu[0], loss_card=card[0], loss_rel_err=loss_err,
+    out = dict(loss_cpu=cpu[0][key], loss_card=card[0][key], loss_rel_err=loss_err,
                grad_err=worst, resnet_grad_l2_err=resnet_l2, params_outside=bad_params)
-    log(f"train step card vs CPU (TINY, float32, TF32 off, RAdam, dropout off): loss "
-        f"{card[0]:.6f} vs {cpu[0]:.6f} (rel {loss_err:.2e}, tol {TRAIN_TOL['loss']}); "
-        f"gradients outside the ResNet {worst:.2e} (tol {TRAIN_TOL['grad']}), ResNet L2 "
-        f"{resnet_l2:.2e} (tol {TRAIN_TOL['resnet_l2']}); updated parameters outside "
-        f"lr x gradient difference: {len(bad_params)}")
+    log(f"{task} train step card vs CPU (TINY, float32, TF32 off, RAdam, dropout off): "
+        f"{key} {card[0][key]:.6f} vs {cpu[0][key]:.6f} (largest rel err of the step's "
+        f"losses {loss_err:.2e}, tol {TRAIN_TOL['loss']}); gradients outside the ResNet "
+        f"{worst:.2e} (tol {TRAIN_TOL['grad']}), ResNet L2 {resnet_l2:.2e} (tol "
+        f"{TRAIN_TOL['resnet_l2']}); updated parameters outside lr x gradient difference: "
+        f"{len(bad_params)}")
     if (loss_err > TRAIN_TOL["loss"] or worst > TRAIN_TOL["grad"]
             or resnet_l2 > TRAIN_TOL["resnet_l2"] or bad_params):
-        raise AssertionError(f"train step card vs CPU: {out}")
+        raise AssertionError(f"{task} train step card vs CPU: {out}")
     return out
 
 
-def train_step_full_width(vocab, dev, seed, smi, with_profile):
-    """Phase 9 (a): the finetune train step at full width (ResNet-101 @ 224,
-    dense wide-qkv fusion, 768x6 encoder + BertCrossLayer, R2Gen 512 x 3,
-    30001 logits), bf16 over float32 masters, the CLI's default batch (32
-    anchors + 32 aux, uint8 images, 100-token reports, with indication) and
-    optimizer (RAdam, two groups, clip 0.1); 20 steps on one repeated batch:
-    3 warm-up, 10 timed, 1 profiled (the launches a step), 6 more with the
-    learning rates x 100 so that 20 steps can show the loss falling."""
+def train_step_full_width(vocab, dev, seed, smi, with_profile, task="finetune"):
+    """Phase 9 (a) / 10 (a): the train step of ``task`` at full width
+    (ResNet-101 @ 224, dense wide-qkv fusion, 768x6 encoder; finetune adds a
+    BertCrossLayer and the R2Gen decoder 512 x 3 with 30001 logits; pretrain
+    adds two 2048-wide projection heads and the contrastive losses, ``all``
+    with soft targets), bf16 over float32 masters, the CLI's default batch
+    (32 anchors + 32 aux, uint8 images, 100-token texts with masks of 40 and
+    60 tokens; finetune with indication) and optimizer (RAdam, two groups for
+    finetune, one for pretrain, clip 0.1), dropout on; 20 steps on one
+    repeated batch: 3 warm-up, 10 timed, 1 profiled (the launches a step), 6
+    more with the learning rates x 100 so that 20 steps can show the loss
+    falling."""
     from evoke_tpu_torch.core.config import OptimConfig
     from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.models.pretrain import PretrainModel
     from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
     from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
     from evoke_tpu_torch.ops.lineage_attention import lineage_attention
@@ -1409,18 +1453,24 @@ def train_step_full_width(vocab, dev, seed, smi, with_profile):
     o = OptimConfig()
     t0 = time.perf_counter()
     n_anchor, image_size, seq = 32, 224, 100
+    finetune = task == "finetune"
+    key = "lm" if finetune else "all_loss"
     with torch.device(dev):
-        model = FinetuneModel(vocab_size=vocab, max_seq_len=seq, dtype=torch.bfloat16)
+        model = (FinetuneModel(vocab_size=vocab, max_seq_len=seq, dtype=torch.bfloat16)
+                 if finetune else PretrainModel(vocab_size=vocab, dtype=torch.bfloat16))
     init_params_(model, seed)
-    opt = build_optimizer(o.optim, "finetune", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+    opt = build_optimizer(o.optim, task, model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
                           weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value)
     state = TrainState(model, opt)
-    step = make_train_step(model, opt, seed, with_indication=True)
+    step = make_train_step(model, opt, seed, with_indication=finetune, task=task)
     rng = np.random.default_rng(seed + 5)
     bt = example_batch(rng, n_anchor, n_anchor, image_size, seq, vocab)
     bt["images"] = rng.integers(0, 256, size=bt["images"].shape, dtype=np.uint8)
     bt["mask"][:, seq * 3 // 5:] = 0
     bt["mask"][::2, seq * 2 // 5:] = 0
+    if not finetune:
+        del bt["inc_ids"], bt["inc_mask"]
+        bt["ids"] *= bt["mask"]                           # pads after the keywords
     batch = {k: torch.as_tensor(v).to(dev) for k, v in bt.items()}
     n_params = sum(p.numel() for p in model.parameters())
     set_up = time.perf_counter() - t0
@@ -1432,15 +1482,15 @@ def train_step_full_width(vocab, dev, seed, smi, with_profile):
     losses, times = [], []
     for i in range(13):
         t1 = time.perf_counter()
-        losses.append(step(state, batch)["lm"])
+        losses.append(step(state, batch)[key])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = profile_serving(lambda: losses.append(step(state, batch)["lm"]),
+    prof = profile_serving(lambda: losses.append(step(state, batch)[key]),
                            what="1 train step", ported=(), quiet=not with_profile)
     set_lr_scale(opt, 100.0)
     for i in range(6):
-        losses.append(step(state, batch)["lm"])
+        losses.append(step(state, batch)[key])
     losses = torch.stack(losses).float().cpu().tolist()
     kernels = (lineage_attention.launches, fused_logit_topk.launches,
                masked_cross_view_attention.launches)
@@ -1450,18 +1500,20 @@ def train_step_full_width(vocab, dev, seed, smi, with_profile):
                launches_per_step=prof["kernel_launches"], busy_share=prof["busy_share"],
                profiled_wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
                losses=losses, launches_k1_k2_k3=kernels, top=prof["top"] if with_profile else [])
-    log(f"train step [{smi}]: bf16 over float32 masters, {n_params / 1e6:.1f}M parameters, "
-        f"batch {n_anchor} + {n_anchor} aux at {image_size} px, {seq} tokens, with indication, "
-        f"RAdam: "
+    texts = ("100-token reports, with indication" if finetune
+             else "100-token keyword texts, pretrain_loss all, soft targets")
+    log(f"{'train' if finetune else 'pretrain'} step [{smi}]: bf16 over float32 masters, "
+        f"{n_params / 1e6:.1f}M parameters, batch {n_anchor} + {n_anchor} aux at "
+        f"{image_size} px, {texts}, RAdam: "
         f"step_ms={ms:.1f} (median of 10 after 3 warm-up), studies_per_s="
         f"{out['studies_per_s']:.1f}, peak_mem_gib={peak_gib:.2f}, launches_per_step="
-        f"{out['launches_per_step']}, busy_share={out['busy_share']:.3f} (1 profiled step); "
-        f"loss step 1 {losses[0]:.4f} -> step 20 {losses[-1]:.4f}; K1/K2/K3 launches "
-        f"{kernels}")
+        f"{out['launches_per_step']}, device_ms={out['device_busy_ms']:.1f}, busy_share="
+        f"{out['busy_share']:.3f} (1 profiled step); {key} step 1 {losses[0]:.4f} -> step 20 "
+        f"{losses[-1]:.4f}; K1/K2/K3 launches {kernels}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train step: the loss did not fall over 20 steps: {losses}")
+        raise AssertionError(f"{task} step: the loss did not fall over 20 steps: {losses}")
     if any(kernels):
-        raise AssertionError(f"train step launched a decode kernel: {kernels}")
+        raise AssertionError(f"{task} step launched a decode kernel: {kernels}")
     del model, opt, state, batch
     torch.cuda.empty_cache()
     return out
@@ -1569,6 +1621,310 @@ def finetune_cli(root, seed, smi):
         f"data {data_s:.1f}s")
     if problems:
         raise AssertionError(f"cli finetune: {problems}")
+    return out
+
+
+# ---- phase 10: stage-1 pretraining and knowledge retrieval ----
+
+LOSS_TOL = 1e-5             # each contrastive loss, card against CPU at float32 (relative)
+# the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s each way (NVIDIA's data
+# sheet gives 128 GB/s, both directions together)
+LINK_BYTES_PER_S = 64e9
+FLOAT32_UNIT = 2.0 ** -24   # float32 unit roundoff
+
+
+def contrastive_losses_card_vs_cpu(dev, seed):
+    """Phase 10 (b): each of the five contrastive losses at full shape (64
+    images, D 2048; tokens T 99 against P 49 patches), float32, card against
+    CPU within ``LOSS_TOL`` relative; studies of 1-3 views, 4 rows padded."""
+    from evoke_tpu_torch.losses import contrastive as cl
+
+    rng = np.random.default_rng(seed + 21)
+    b, d, t, p = 64, 2048, 99, 49
+    pids = np.repeat(np.arange(32), 2)[:b]
+    pids[::5] = 1000 + np.arange(len(pids[::5]))          # some views without a partner
+    valid = np.ones(b, bool)
+    valid[-4:] = False
+    mask = np.ones((b, t), np.int32)
+    mask[::2, 40:] = 0
+    mask[1::2, 60:] = 0
+    host = dict(img=rng.standard_normal((b, d), np.float32),
+                txt=rng.standard_normal((b, d), np.float32),
+                patches=rng.standard_normal((b, p, d), np.float32),
+                tokens=rng.standard_normal((b, t, d), np.float32),
+                pids=pids.astype(np.int32), valid=valid, mask=mask)
+    fns = {
+        "multi_positive_image_loss": lambda a: cl.multi_positive_image_loss(
+            a["img"], a["pids"], a["valid"], 0.5),
+        "multi_positive_image_loss_avg": lambda a: cl.multi_positive_image_loss_avg(
+            a["img"], a["pids"], a["valid"], 0.5),
+        "global_alignment_loss": lambda a: cl.global_alignment_loss(
+            a["img"], a["txt"], a["pids"], a["valid"], 0.5),
+        "local_token_alignment_loss": lambda a: cl.local_token_alignment_loss(
+            a["patches"], a["tokens"], a["mask"], 0.5, valid=a["valid"]),
+        "local_token_alignment_loss_no_mask": lambda a: cl.local_token_alignment_loss(
+            a["patches"], a["tokens"], None, 0.5, valid=a["valid"]),
+    }
+    cpu_in = {k: torch.as_tensor(v) for k, v in host.items()}
+    card_in = {k: v.to(dev) for k, v in cpu_in.items()}
+    out = {}
+    for name, fn in fns.items():
+        want, got = float(fn(cpu_in)), float(fn(card_in))
+        out[name] = dict(cpu=want, card=got, rel_err=abs(got - want) / abs(want))
+    log("contrastive losses card vs CPU (float32, 64 images, D 2048, T 99, P 49): "
+        + ", ".join(f"{k} {v['card']:.6f} (rel {v['rel_err']:.1e})" for k, v in out.items())
+        + f"; tol {LOSS_TOL}")
+    bad = {k: v for k, v in out.items() if not v["rel_err"] <= LOSS_TOL}
+    if bad:
+        raise AssertionError(f"contrastive losses card vs CPU: {bad}")
+    return out
+
+
+def retrieval_encode(vocab, dev, seed, smi):
+    """Phase 10 (c): ``encode_images`` of the full-width pretrain model
+    (bf16, eval path) over 4 batches in the loader's layout (64 anchors + 64
+    aux views, uint8, 224 px), as ``cli retrieve`` runs it: flattened,
+    float16, copied to the host."""
+    from evoke_tpu_torch.models.pretrain import PretrainModel
+    from evoke_tpu_torch.params import init_params_
+    from evoke_tpu_torch.train.steps import maybe_normalize_images
+
+    with torch.device(dev):
+        model = PretrainModel(vocab_size=vocab, dtype=torch.bfloat16)
+    init_params_(model, seed).eval()
+    rng = np.random.default_rng(seed + 31)
+    batches = []
+    for _ in range(4):
+        bt = example_batch(rng, 64, 64, 224, 100, vocab)
+        bt["images"] = rng.integers(0, 256, size=bt["images"].shape, dtype=np.uint8)
+        batches.append({k: torch.as_tensor(bt[k]) for k in ("images", "pids", "valid")})
+
+    @torch.inference_mode()
+    def encode(bt):
+        bt = maybe_normalize_images({k: v.to(dev, non_blocking=True) for k, v in bt.items()})
+        proj, _ = model.encode_images(bt["images"], bt["pids"], bt["valid"], 64)
+        return proj.reshape(64, -1).to(torch.float16).cpu()
+
+    encode(batches[0])                     # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = [encode(bt) for bt in batches]
+    wall = time.perf_counter() - t0
+    emb = torch.cat(embs)
+    out = dict(batches=4, studies=int(emb.shape[0]), dim=int(emb.shape[1]), wall_s=wall,
+               ms_per_batch=wall / 4 * 1e3, studies_per_s=emb.shape[0] / wall,
+               finite=bool(torch.isfinite(emb).all()))
+    log(f"retrieval encode [{smi}]: 4 batches of 64 anchors + 64 aux at 224 px, bf16, eval "
+        f"path: {out['ms_per_batch']:.1f} ms a batch, {out['studies_per_s']:.1f} studies/s, "
+        f"embeddings {tuple(emb.shape)} float16 on the host")
+    if not out["finite"] or out["dim"] != 50 * 2048:
+        raise AssertionError(f"retrieval encode: {out}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def retrieval_search(dev, seed, smi, n=16384, d=50 * 2048, q=1024, k=20, chunk=4096,
+                     n_check=64):
+    """Phase 10 (c): ``TopKIndex.search`` (k 20) over a seeded float16
+    database of ``n`` rows x ``d`` in pinned host memory, streamed to the
+    card in chunks of ``chunk`` rows, with ``q`` queries (the database's
+    first rows, each excluded from its own hits by its study code). Timed
+    three times (median); the host -> device copy of the database is timed
+    alone too. ``n_check`` queries are checked against a float64 search on
+    the CPU: the ids must be equal wherever the float64 margin between the
+    two candidates exceeds the sum of their float32 error bounds. A score's
+    bound is 6 u sqrt(d / 2) ||q * x||_2: the float16 products are exact in
+    float32, and with the rounding errors independent and the partial sums
+    of these independent random terms growing as sqrt(k), the summation's
+    error has a standard deviation under u sqrt(d / 2) ||q * x||_2 in any
+    order (Higham and Mary's probabilistic model; 6 standard deviations).
+    The largest error of a returned score is printed beside it."""
+    from evoke_tpu_torch.retrieval.topk import NEG_INF, TopKIndex
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 41)
+    db = torch.empty((n, d), dtype=torch.float16, pin_memory=True)
+    for s in range(0, n, chunk):
+        db[s:s + chunk].copy_(torch.randn((min(chunk, n - s), d), generator=g, device=dev,
+                                          dtype=torch.float16))
+    codes = np.arange(n, dtype=np.int64)
+    ids = [str(i) for i in range(n)]
+    index = TopKIndex(db, codes, ids, chunk_size=chunk, device=dev)
+    queries = db[:q]
+    set_up = time.perf_counter() - t0
+
+    # the database's copy alone, chunk by chunk as the search streams it
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    buf = torch.empty((chunk, d), dtype=torch.float16, device=dev)
+    start.record()
+    for s in range(0, n, chunk):
+        buf[:min(chunk, n - s)].copy_(db[s:s + chunk], non_blocking=True)
+    end.record()
+    end.synchronize()
+    copy_ms = start.elapsed_time(end)
+    del buf
+
+    index.search(queries[:8], codes[:8], k)            # warm-up (cuBLAS, the sort)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scores, idx = index.search(queries, codes[:q], k)
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls)
+    flops = 2.0 * q * n * d
+    nbytes = index.h2d_bytes
+    bound_ms = max(flops / PEAK_FLOPS[torch.float32], nbytes / LINK_BYTES_PER_S) * 1e3
+    bound_by = ("operations" if flops / PEAK_FLOPS[torch.float32] >= nbytes / LINK_BYTES_PER_S
+                else "bytes")
+
+    # float64 check of the first n_check queries on the CPU
+    t2 = time.perf_counter()
+    q64 = queries[:n_check].double()
+    s64 = torch.empty((n_check, n), dtype=torch.float64)
+    sq_sum = torch.empty((n_check, n), dtype=torch.float64)
+    for s in range(0, n, 1024):
+        x = db[s:s + 1024].double()
+        s64[:, s:s + 1024] = q64 @ x.t()
+        sq_sum[:, s:s + 1024] = q64.square() @ x.square().t()
+    err = 6.0 * FLOAT32_UNIT * math.sqrt(d / 2) * sq_sum.sqrt()   # a score's float32 bound
+    s64[torch.arange(n_check), torch.arange(n_check)] = NEG_INF   # each query's own row
+    ref = torch.sort(s64, dim=1, descending=True, stable=True).indices[:, :k + 1]
+    got = torch.as_tensor(idx[:n_check])
+    mismatched = excused = 0
+    for r in range(n_check):
+        for j in range(k):
+            a, b = int(got[r, j]), int(ref[r, j])
+            if a == b:
+                continue
+            mismatched += 1
+            if abs(float(s64[r, a] - s64[r, b])) <= float(err[r, a] + err[r, b]):
+                excused += 1
+    # margins between neighbouring float64 candidates (top k + 1) under the bound
+    ref_s = torch.gather(s64, 1, ref)
+    ref_e = torch.gather(err, 1, ref)
+    margins = ref_s[:, :-1] - ref_s[:, 1:]
+    under = int((margins <= ref_e[:, :-1] + ref_e[:, 1:]).sum())
+    score_err = (torch.as_tensor(scores[:n_check]).double() - torch.gather(s64, 1, got)).abs()
+    worst = float(score_err.max())
+    worst_vs_bound = float((score_err / torch.gather(err, 1, got)).max())
+    check_s = time.perf_counter() - t2
+    out = dict(rows=n, dim=d, queries=q, k=k, chunk=chunk, db_gib=db.numel() * 2 / 2 ** 30,
+               set_up_s=set_up, wall_ms=wall * 1e3, walls_ms=[w * 1e3 for w in walls],
+               rows_per_s=n / wall, pairs_per_s=n * q / wall, gemm_tflops=flops / wall / 1e12,
+               h2d_bytes=nbytes, h2d_copy_ms=copy_ms, h2d_gb_per_s=nbytes / copy_ms / 1e6,
+               bound_ms=bound_ms, bound_by=bound_by, checked_queries=n_check,
+               float32_err_bound_median=float(err.median()),
+               ids_mismatched=mismatched, mismatches_within_bound=excused,
+               margins_under_bound=under, margins=int(margins.numel()),
+               max_score_err=worst, max_score_err_over_bound=worst_vs_bound, check_s=check_s)
+    log(f"retrieval search [{smi}]: k {k} over {n} x {d} float16 rows "
+        f"({out['db_gib']:.2f} GiB, pinned host memory, chunks of {chunk}), {q} queries: "
+        f"{out['wall_ms']:.1f} ms (median of 3), {out['rows_per_s']:.0f} rows/s "
+        f"({out['pairs_per_s']:.3e} query-row products/s), GEMM {out['gemm_tflops']:.1f} "
+        f"TFLOP/s float32; host -> device {nbytes / 1e9:.2f} GB, alone {copy_ms:.1f} ms "
+        f"({out['h2d_gb_per_s']:.1f} GB/s); bound {bound_ms:.1f} ms ({bound_by}: "
+        f"{flops / 1e12:.2f} TFLOP at {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e9:.2f} GB at {LINK_BYTES_PER_S / 1e9:.0f} GB/s); float64 check of "
+        f"{n_check} queries: float32 error bound (median) "
+        f"{out['float32_err_bound_median']:.3f}, ids differing {mismatched} (within the "
+        f"bound {excused}), neighbouring margins under the bound {under} of "
+        f"{out['margins']}, largest score error {worst:.4f} ({worst_vs_bound:.2f} of its "
+        f"bound); check {check_s:.1f}s")
+    if excused != mismatched or not np.isfinite(scores).all():
+        raise AssertionError(f"retrieval search: {out}")
+    del index, db
+    return out
+
+
+def stage1_cli(root, seed, smi):
+    """Phase 10 (d): the stage-1 chain through the CLI in-process, every
+    default but bf16, over phase 9 (c)'s synthetic 224 px dataset (64 train
+    / 16 val / 16 test studies, 30000 words): ``cli pretrain`` for 1 epoch,
+    ``cli retrieve`` (k 20, no plots) from its ``current`` slot, then ``cli
+    finetune`` over the augmented annotation seeded from that slot, 1 epoch.
+    K1, K2 and K3 must launch 0 times."""
+    import contextlib
+    import io
+    import os
+
+    from evoke_tpu_torch import cli
+    from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+
+    t0 = time.perf_counter()
+    ann = write_synthetic_dataset(root, n_train=64, n_val=16, n_test=16, image_size=224,
+                                  seed=seed)
+    tok_dir = write_cli_tokenizer(root, ann)
+    data_s = time.perf_counter() - t0
+    res = os.path.join(root, "results")
+    argv = ["--data.image_dir", root, "--data.tokenizer_dir", tok_dir,
+            "--trainer.result_dir", res, "--model.dtype", "bfloat16", "--trainer.epochs", "1"]
+    slot = os.path.join(res, "mimic_cxr", "pretrain", "v1", "checkpoint", "current")
+    aug = ann.replace(".json", "_best_reports_keywords_20.json")
+    runs = [("pretrain", ["--data.ann_path", ann]),
+            ("retrieve", ["--data.ann_path", ann, "--trainer.load", slot,
+                          "--trainer.version", "retrieve"]),
+            ("finetune", ["--data.ann_path", aug, "--trainer.load", slot])]
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+    masked_cross_view_attention.launches = 0
+    walls, printed = {}, {}
+    for task, extra in runs:
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([task] + argv + extra)
+        torch.cuda.synchronize()
+        walls[task] = time.perf_counter() - t1
+        printed[task] = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"cli {task} returned {rc}")
+        gc_cuda()
+    kernels = (lineage_attention.launches, fused_logit_topk.launches,
+               masked_cross_view_attention.launches)
+    pre_run = os.path.dirname(os.path.dirname(slot))
+    ft_run = os.path.join(res, "mimic_cxr", "finetune", "v1")
+    with open(os.path.join(pre_run, "metrics.jsonl")) as f:
+        pre = [json.loads(line) for line in f]
+    with open(os.path.join(ft_run, "finetune.log")) as f:
+        ft_log = f.read()
+    load_line = [line for line in ft_log.splitlines() if "partial load from" in line]
+    with open(aug) as f:
+        aug_ann = json.load(f)
+    hits = [len(it["specific_knowledge"]["sk_ids"]) for split in ("train", "val", "test")
+            for it in aug_ann[split]]
+    problems = []
+    if [r["epoch"] for r in pre] != [1] or not all(
+            math.isfinite(pre[0][k]) for k in pre[0] if k.endswith("_loss")):
+        problems.append(f"pretrain metrics {pre}")
+    if not os.path.isfile(os.path.join(slot, "state.pt")):
+        problems.append("no pretrain current slot")
+    if not hits or any(h != 20 for h in hits):
+        problems.append(f"sk_ids per study {sorted(set(hits))}")
+    if not load_line:
+        problems.append("finetune logged no partial load")
+    if not os.path.isfile(os.path.join(ft_run, "test_prediction.csv")):
+        problems.append("finetune wrote no test_prediction.csv")
+    if any(kernels):
+        problems.append(f"K1/K2/K3 launches {kernels}")
+    report = load_line[0].split(": ", 1)[1] if load_line else ""
+    out = dict(data_s=data_s, wall_s=walls, pretrain_losses={k: pre[0][k] for k in pre[0]
+                                                               if k.endswith("_loss")},
+               retrieve_printed=printed["retrieve"].strip().splitlines(),
+               partial_load=report, studies_annotated=len(hits), launches_k1_k2_k3=kernels)
+    log(f"cli pretrain -> retrieve -> finetune [{smi}]: 64 / 16 / 16 studies, bf16, 1 epoch "
+        f"each: walls pretrain {walls['pretrain']:.1f} s, retrieve {walls['retrieve']:.1f} s, "
+        f"finetune {walls['finetune']:.1f} s; pretrain val_all_loss "
+        f"{pre[0].get('val_all_loss', float('nan')):.4f}; {len(hits)} studies annotated with "
+        f"20 hits; finetune partial load {report}; K1/K2/K3 launches {kernels}; data "
+        f"{data_s:.1f}s")
+    if problems:
+        raise AssertionError(f"stage-1 cli chain: {problems}")
     return out
 
 
@@ -1801,6 +2157,19 @@ def main():
         finetune = finetune_cli(root, args.seed, smi)
     log(f"finetune phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- phase 10: stage-1 pretraining and knowledge retrieval ----
+    t0 = time.perf_counter()
+    pretrain_full = train_step_full_width(vocab, dev, args.seed, smi, args.profile,
+                                          task="pretrain")
+    pretrain_check = train_card_vs_cpu(dev, args.seed, task="pretrain")
+    losses_check = contrastive_losses_card_vs_cpu(dev, args.seed)
+    encode = retrieval_encode(vocab, dev, args.seed, smi)
+    search = retrieval_search(dev, args.seed, smi)
+    gc_cuda()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as root:
+        stage1 = stage1_cli(root, args.seed, smi)
+    log(f"pretrain and retrieval phase {time.perf_counter() - t0:.1f}s")
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -1837,6 +2206,9 @@ def main():
             "decode_step_wall_ms": step_wall, "early_stop": early,
             "finetune": {"train_step": train_full, "card_vs_cpu": train_check,
                          "cli": finetune},
+            "pretrain": {"train_step": pretrain_full, "card_vs_cpu": pretrain_check,
+                         "losses_card_vs_cpu": losses_check, "retrieval_encode": encode,
+                         "retrieval_search": search, "cli": stage1},
             "kernels": kernels["kernels"], "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }

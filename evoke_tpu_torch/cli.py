@@ -6,15 +6,29 @@ reads a YAML config; ``--device cuda|cpu`` (default cuda) picks the device:
 without CUDA the run raises unless ``--device cpu`` is given, which runs the
 kernels' plain PyTorch versions.
 
-Ported:
+The tasks:
 
+- ``pretrain``: stage-1 contrastive training (the multi-positive image
+  loss, global and local image-text alignment; RAdam / AMSGrad in one group
+  at ``pt_lr``), the eval step over val every epoch and over test every
+  ``trainer.test_every`` epochs, the monitor on ``val_all_loss`` (min);
+  checkpoints, ``--trainer.resume`` and ``--trainer.load`` as in finetune;
+- ``retrieve``: stage-1 weights from ``--trainer.load`` (a partial load),
+  every train, val and test study encoded on the eval path into a float16
+  database of flattened token embeddings, an exact top-k search on the
+  device (``retrieval/topk.py``), and ``<ann>_best_reports_keywords_{topk}.json``
+  beside the annotation; ``--data.retrieve_db_ann_path`` /
+  ``retrieve_db_image_dir`` search another corpus's train split,
+  ``--data.retrieve_plot N`` draws N retrieval grids a split under
+  ``{result_dir}/sk_analysis`` (PIL). Its result dir is the pretrain task's;
 - ``finetune``: stage-2 training (train steps over the indication loader,
   then the no-indication loader; the optax-exact RAdam / AMSGrad chain in two
   groups), then beam decode of val and test on the eval path with their
   metrics and ``{split}_prediction.csv`` columns, every epoch; checkpoints
   under ``{result_dir}/checkpoint/`` (``current`` every ``save_period``
   epochs, ``best`` on monitor improvement), ``--trainer.resume auto|current|
-  best`` and ``--trainer.load <slot dir or state dict file>``;
+  best`` and ``--trainer.load <slot dir or state dict file>`` (a pretrain
+  slot seeds the shared encoders);
 - ``test``: beam decode of the test split on the eval path, the metrics (NLG
   always; CheXbert on the device when ``--metrics.chexbert_checkpoint`` is
   set; the other CE metrics when their packages and checkpoints are there),
@@ -27,9 +41,6 @@ Ported:
   ``serve_prediction.csv`` and a JSON throughput summary) with either engine:
   ``--decode.engine batch`` (the default: pipelined batches) or
   ``continuous`` (slots refilled mid-stream, ``decode/continuous.py``).
-
-``pretrain`` and ``retrieve`` raise NotImplementedError naming their ROADMAP
-item.
 """
 
 from __future__ import annotations
@@ -41,56 +52,71 @@ import sys
 from typing import Dict, List, Optional
 
 TASKS = ("pretrain", "finetune", "test", "retrieve", "score", "serve")
-_NOT_PORTED = {"pretrain": "A11", "retrieve": "A11"}
 
 
-def build_model(cfg, vocab_size: int, device):
-    """The finetune model of ``evoke_tpu/cli.py`` build_model, on ``device``."""
+def build_model(cfg, vocab_size: int, device, task: str = "finetune"):
+    """The model of ``evoke_tpu/cli.py`` build_model for ``task`` (the
+    pretrain model for ``pretrain``, else the finetune model), on ``device``."""
     import torch
 
     from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.models.pretrain import PretrainModel
 
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.model.dtype]
     m = cfg.model
     partners = None if m.fusion_max_partners is None else int(m.fusion_max_partners)
+    common = dict(
+        vocab_size=vocab_size, d_vf=m.d_vf, output_dim=m.output_dim,
+        encoder_hidden_size=m.encoder_hidden_size,
+        encoder_num_layers=m.encoder_num_hidden_layers,
+        encoder_num_heads=m.encoder_num_heads,
+        encoder_intermediate_size=m.encoder_intermediate_size,
+        proj_num_heads=m.proj_num_heads, fusion_wide_qkv=m.fusion_wide_qkv,
+        fusion_max_partners=partners, remat_visual=m.remat_visual,
+        is_multiview_learning=m.is_multiview_learning, dtype=dtype)
     with torch.device(device):
+        if task == "pretrain":
+            ls = cfg.loss
+            return PretrainModel(instance_temp=ls.instance_temp, region_temp=ls.region_temp,
+                                 pretrain_loss=ls.pretrain_loss,
+                                 mul_pos_formulation=ls.mul_pos_formulation,
+                                 mask_local_pad=ls.mask_local_pad, **common)
         return FinetuneModel(
-            vocab_size=vocab_size, d_vf=m.d_vf, output_dim=m.output_dim,
-            encoder_hidden_size=m.encoder_hidden_size,
-            encoder_num_layers=m.encoder_num_hidden_layers,
-            encoder_num_heads=m.encoder_num_heads,
-            encoder_intermediate_size=m.encoder_intermediate_size,
-            proj_num_heads=m.proj_num_heads, fusion_wide_qkv=m.fusion_wide_qkv,
-            fusion_max_partners=partners, is_multiview_learning=m.is_multiview_learning,
             fusion_num_heads=m.fusion_num_heads,
             fusion_intermediate_size=m.fusion_intermediate_size,
             sk_fusion_num_layers=m.sk_fusion_num_layers, d_model=m.d_model, d_ff=m.d_ff,
             num_heads=m.num_heads, num_layers=m.num_layers, dropout=m.dropout,
             drop_prob_lm=m.drop_prob_lm, rm_num_slots=m.rm_num_slots,
             rm_num_heads=m.rm_num_heads, rm_d_model=m.rm_d_model,
-            max_seq_len=cfg.data.max_seq_len, remat_visual=m.remat_visual, dtype=dtype)
+            max_seq_len=cfg.data.max_seq_len, **common)
 
 
-def build_loaders(cfg, tokenizer, ann, split: str = "test", train: bool = False):
-    """One split's (with-indication, without-indication) loaders, as
-    ``evoke_tpu/cli.py`` build_loaders makes them for the finetune model
-    (None where a stream is empty or indication is off); ``train``: the
-    training transform and a shuffled order."""
+def build_loaders(cfg, tokenizer, ann, split: str = "test", train: bool = False,
+                  task: str = "finetune", image_dir: str = ""):
+    """One split's loaders, as ``evoke_tpu/cli.py`` build_loaders makes
+    them: for the finetune model (with-indication, without-indication)
+    (None where a stream is empty or indication is off); for ``task
+    "pretrain"`` one loader of the split's ``align_text`` (keywords or
+    report, no BOS / EOS). ``train``: the training transform and a shuffled
+    order; ``image_dir`` (default ``data.image_dir``) where the images are."""
     from evoke_tpu_torch.data.batching import MultiviewBatcher
-    from evoke_tpu_torch.data.datasets import parse_finetune
+    from evoke_tpu_torch.data.datasets import parse_finetune, parse_pretrain
     from evoke_tpu_torch.data.transforms import make_transform
 
     common = dict(n_anchor=cfg.data.batch_size, max_seq_len=cfg.data.max_seq_len,
-                  image_dir=cfg.data.image_dir, num_workers=cfg.data.num_workers)
+                  image_dir=image_dir or cfg.data.image_dir, num_workers=cfg.data.num_workers,
+                  multiview=cfg.model.is_multiview_learning, shuffle=train)
     tf = make_transform(cfg.model.image_size, train, output_uint8=cfg.data.images_uint8)
+    if task == "pretrain":
+        return MultiviewBatcher(parse_pretrain(ann, split, cfg.data.align_type), tokenizer,
+                                tf, **common)
     has_ind, no_ind = parse_finetune(ann, split)
 
     def mk(exs, with_ind):
         if not exs:
             return None
-        return MultiviewBatcher(exs, tokenizer, tf, shuffle=train, with_indication=with_ind,
-                                text_field="report", add_bos_eos=True,
-                                multiview=cfg.model.is_multiview_learning, **common)
+        return MultiviewBatcher(exs, tokenizer, tf, with_indication=with_ind,
+                                text_field="report", add_bos_eos=True, **common)
 
     inc = mk(has_ind, True) if cfg.model.is_add_indication else None
     no = mk(no_ind + ([] if cfg.model.is_add_indication else has_ind), False)
@@ -158,18 +184,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     rest = argv[1:]
     yaml_path = _pop_option(rest, "--config")
     device = _pop_option(rest, "--device") or "cuda"
-    # serve keeps its own task name (results/{data}/serve/{version})
-    cfg = load_config(yaml_path, overrides={"trainer.task": task}, argv=rest)
-    cfg.trainer.task = task
-    if task in _NOT_PORTED:
-        raise NotImplementedError(f"task {task!r} is not ported yet "
-                                  f"(ROADMAP {_NOT_PORTED[task]}); ported: finetune, test, "
-                                  "score, serve")
+    # serve keeps its own task name (results/{data}/serve/{version}); retrieve
+    # runs under the pretrain task's
+    cfg_task = {"retrieve": "pretrain"}.get(task, task)
+    cfg = load_config(yaml_path, overrides={"trainer.task": cfg_task}, argv=rest)
+    cfg.trainer.task = cfg_task
     if task == "score":
         return _score(cfg)
     if task == "serve":
         _check_serve_config(cfg)
-    else:
+    elif cfg_task != "pretrain":
         _check_heatmaps(cfg)
     device = resolve_device(device)
 
@@ -182,9 +206,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 ann_path=cfg.data.ann_path, model=cfg.data.tokenizer_model,
                                 tokenizer_type=cfg.data.tokenizer_type)
     cfg.vocab_size = tokenizer.get_vocab_size()
-    model = build_model(cfg, cfg.vocab_size, device)
+    model = build_model(cfg, cfg.vocab_size, device, cfg_task)
     init_params_(model, cfg.trainer.seed)
     model.eval()
+    if task == "pretrain":
+        return _pretrain(cfg, model, tokenizer, ann, device)
+    if task == "retrieve":
+        return _retrieve(cfg, model, tokenizer, ann, device)
     if task == "finetune":
         return _finetune(cfg, model, tokenizer, ann, device)
     loaders = build_loaders(cfg, tokenizer, ann)
@@ -222,6 +250,111 @@ def _finetune(cfg, model, tokenizer, ann, device) -> int:
                               state=TrainState(model, opt), train_loaders=loaders["train"],
                               metrics_fn=metrics_fn_for(cfg, device), device=device)
     trainer.train()
+    return 0
+
+
+def _pretrain(cfg, model, tokenizer, ann, device) -> int:
+    """Stage-1 training (``evoke_tpu/cli.py``'s pretrain task): the model
+    initialised from the seed, the optimizer in one group at ``pt_lr`` (the
+    state of ``init_pretrain_state``), PretrainTrainer over the train loader
+    with val (and test) evaluated."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState
+    from evoke_tpu_torch.train.trainer import PretrainTrainer
+
+    o = cfg.optim
+    opt = build_optimizer(o.optim, "pretrain", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+                          weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value,
+                          grad_accum_steps=o.grad_accum_steps)
+    loaders = {split: build_loaders(cfg, tokenizer, ann, split, train=split == "train",
+                                    task="pretrain") for split in ("train", "val", "test")}
+    PretrainTrainer(cfg, model, tokenizer, TrainState(model, opt), train_loader=loaders["train"],
+                    val_loader=loaders["val"], test_loader=loaders["test"],
+                    device=device).train()
+    return 0
+
+
+def _retrieve(cfg, model, tokenizer, ann, device) -> int:
+    """Stage 1.5 (``evoke_tpu/cli.py``'s retrieve task): the specific-knowledge
+    annotation from an exact top-k search on the device.
+
+    The database is the train split's (or ``retrieve_db_ann_path``'s train
+    split's) anchors: ``encode_images`` on the eval path, flattened and
+    stored as float16 on the host; a study's code is its image id, so only
+    the query itself is excluded. As in the JAX CLI, which reads one batch of
+    the train loader to initialise its model first, the same-corpus database
+    is the pretrain train loader's second pass (shuffled, train transform);
+    ``set_epoch(1)`` draws that pass. The train split is searched with its
+    own database rows, val and test with theirs encoded likewise."""
+    import numpy as np
+    import torch
+
+    from evoke_tpu_torch.core.checkpoint import partial_restore_from
+    from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch
+    from evoke_tpu_torch.data.datasets import load_annotation
+    from evoke_tpu_torch.retrieval.topk import (TopKIndex, attach_specific_knowledge,
+                                                stable_code)
+    from evoke_tpu_torch.serve import with_host_valid
+    from evoke_tpu_torch.train.steps import maybe_normalize_images
+
+    if cfg.trainer.load:
+        print(f"loaded stage-1 weights: {partial_restore_from(cfg.trainer.load, model)}")
+
+    @torch.inference_mode()
+    def corpus(loader):
+        embs, codes, ids = [], [], []
+        prefetch = cfg.data.prefetch
+        for batch, host in device_prefetch(with_host_valid(Prefetcher(loader, prefetch)),
+                                           device, prefetch):
+            batch = maybe_normalize_images(batch)
+            n_anchor = batch["ids"].shape[0]
+            proj, _ = model.encode_images(batch["images"], batch["pids"], batch["valid"],
+                                          n_anchor)
+            keep = [i for i in range(n_anchor) if host["_valid"][i]]
+            embs.append(proj.reshape(n_anchor, -1)[keep].to(torch.float16).cpu())
+            ids += [host["_image_ids"][i] for i in keep]
+        return (torch.cat(embs), np.asarray([stable_code(i) for i in ids], np.int64), ids)
+
+    # cross-corpus mode: the database is another corpus's train split
+    same_corpus = not cfg.data.retrieve_db_ann_path
+    db_ann_path = cfg.data.retrieve_db_ann_path or cfg.data.ann_path
+    if same_corpus:
+        db_loader = build_loaders(cfg, tokenizer, ann, "train", train=True, task="pretrain")
+        db_loader.set_epoch(1)
+    else:
+        db_loader = build_loaders(cfg, tokenizer, load_annotation(db_ann_path), "train",
+                                  task="pretrain", image_dir=cfg.data.retrieve_db_image_dir)
+    db_emb, db_codes, db_ids = corpus(db_loader)
+    index = TopKIndex(db_emb, db_codes, db_ids, device=device)
+    topk = cfg.data.retrieve_topk
+    results = {}
+    for split in ("train", "val", "test"):
+        if split == "train" and same_corpus:
+            q_emb, q_codes, q_ids = db_emb, db_codes, db_ids
+        else:
+            q_emb, q_codes, q_ids = corpus(build_loaders(cfg, tokenizer, ann, split,
+                                                         task="pretrain"))
+        _, idx = index.search(q_emb, q_codes, topk)
+        results[split] = {qid: [db_ids[j] for j in row] for qid, row in zip(q_ids, idx)}
+    out_path = cfg.data.ann_path.replace(".json", f"_best_reports_keywords_{topk}.json")
+    # the knowledge (reports, keywords) comes from the database corpus's train items
+    target_ann = load_annotation(cfg.data.ann_path)
+    id_to_item = {str(it["id"]): it for it in load_annotation(db_ann_path).get("train", [])}
+    for split in ("train", "val", "test"):
+        attach_specific_knowledge(target_ann, split, results[split], id_to_item, topk)
+    with open(out_path, "w") as f:
+        json.dump(target_ann, f)
+    print(f"wrote {out_path}")
+    if cfg.data.retrieve_plot > 0:
+        from evoke_tpu_torch.retrieval.topk import plot_topk_images
+
+        plot_dir = os.path.join(cfg.result_dir, "sk_analysis")
+        for split in ("train", "val", "test"):
+            wrote = plot_topk_images(
+                target_ann, split, id_to_item, cfg.data.image_dir, plot_dir,
+                topk=min(topk, 3), n_studies=cfg.data.retrieve_plot,
+                db_image_dir=cfg.data.retrieve_db_image_dir or None)
+            print(f"wrote {len(wrote)} {split} retrieval grids to {plot_dir}")
     return 0
 
 

@@ -65,7 +65,8 @@ class FinetuneModel(nn.Module):
         self.text_head = ProjectionHead(encoder_hidden_size, output_dim, output_dim,
                                         final_bn=True, dtype=dtype)
         self.fusion = MultiviewFusion(d_vf, proj_num_heads, wide_qkv=fusion_wide_qkv,
-                                      max_partners=fusion_max_partners, dtype=dtype)
+                                      max_partners=fusion_max_partners, dtype=dtype,
+                                      cross=is_multiview_learning)
         self.multimodal_fusion_layers, self.visual_self_atten_layers = [], []
         for i in range(sk_fusion_num_layers):
             cross = BertCrossLayer(output_dim, fusion_num_heads, fusion_intermediate_size,

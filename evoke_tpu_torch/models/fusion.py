@@ -126,16 +126,22 @@ class BatchedCrossViewAttention(nn.Module):
 
 
 class MultiviewFusion(nn.Module):
-    """LN1 -> masked cross-view attention -> residual + LN2 (pass-through when no partner)."""
+    """LN1 -> masked cross-view attention -> residual + LN2 (pass-through when no partner).
+
+    ``cross=False`` builds LN1 alone: a model without multiview learning
+    calls only ``norm_only``, and flax creates the parameters of the modules
+    a model calls, no others."""
 
     def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
-                 max_partners: Any = None, dtype=torch.float32, dropout_rate: float = 0.1):
+                 max_partners: Any = None, dtype=torch.float32, dropout_rate: float = 0.1,
+                 cross: bool = True):
         super().__init__()
         self.layer_norm_1 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
-        self.layer_norm_2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
-        self.cross = BatchedCrossViewAttention(d_model, num_heads, wide_qkv,
-                                               max_partners=max_partners, dtype=dtype,
-                                               dropout_rate=dropout_rate)
+        if cross:
+            self.layer_norm_2 = LayerNorm(d_model, eps=1e-5, dtype=dtype)
+            self.cross = BatchedCrossViewAttention(d_model, num_heads, wide_qkv,
+                                                   max_partners=max_partners, dtype=dtype,
+                                                   dropout_rate=dropout_rate)
 
     def forward(self, image_embed, pid_codes, valid, n_anchor: int, rng=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

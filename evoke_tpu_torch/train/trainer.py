@@ -1,4 +1,4 @@
-"""Epoch drivers of the finetune and test tasks (port of
+"""Epoch loops of the pretrain, finetune and test tasks (port of
 ``evoke_tpu/train/trainer.py``).
 
 - ``BaseTrainer``: the result dir, ``RunLogger`` to ``{task}.log``,
@@ -9,6 +9,11 @@
   (``auto`` starts fresh when there is no ``current`` slot yet) and
   ``trainer.load`` (a partial load), the best-record CSV and
   ``trainer.profile_epoch`` (a ``torch.profiler`` trace of that epoch).
+- ``PretrainTrainer``: each epoch trains over the train loader (step
+  metrics summed on the device: one host read per epoch, plus one per
+  ``log_interval`` steps), then runs the eval step over val, and over test
+  every ``trainer.test_every`` epochs; the monitor is ``val_all_loss``
+  (mode min) and ReduceLROnPlateau reads it.
 - ``FinetuneTrainer``: each epoch trains over the indication loader, then the
   no-indication loader (step metrics summed on the device: one host read per
   epoch, plus one per ``log_interval`` steps), then evaluates val and test:
@@ -40,7 +45,8 @@ from evoke_tpu_torch.core.loggers import (MetricWriter, PredictionCSV, RunLogger
 from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch
 from evoke_tpu_torch.serve import EMPTY_REPORT, generate_stream, with_host_valid
 from evoke_tpu_torch.train.optim import build_scheduler, set_lr_scale
-from evoke_tpu_torch.train.steps import TrainState, make_generate_step, make_train_step
+from evoke_tpu_torch.train.steps import (TrainState, make_eval_step, make_generate_step,
+                                         make_train_step)
 
 MetricsFn = Callable[[Dict[str, List[str]], Dict[str, List[str]]], Dict[str, float]]
 
@@ -232,6 +238,46 @@ class BaseTrainer:
 
     def _train_epoch(self, epoch: int) -> Dict[str, float]:
         raise NotImplementedError
+
+
+class PretrainTrainer(BaseTrainer):
+    """Stage-1 contrastive pretraining (PTrainer parity)."""
+
+    def __init__(self, cfg, model, tokenizer, state, train_loader, val_loader,
+                 test_loader=None, **kw):
+        super().__init__(cfg, model, tokenizer, state=state, **kw)
+        self.loaders = {"train": train_loader, "val": val_loader, "test": test_loader}
+        self.train_step = make_train_step(model, state.opt, cfg.trainer.seed, task="pretrain")
+        self.eval_step = make_eval_step(model)
+
+    def _batches(self, loader):
+        prefetch = self.cfg.data.prefetch
+        return device_prefetch(Prefetcher(loader, prefetch), self.device, prefetch)
+
+    def _run_split(self, loader) -> Dict[str, float]:
+        sums, n = {}, 0
+        for batch, _ in self._batches(loader):
+            _accumulate(sums, self.eval_step(self.state, batch))
+            n += 1
+        return _epoch_means(sums, n)
+
+    def _train_epoch(self, epoch: int) -> Dict[str, float]:
+        sums, n = {}, 0
+        loader = self.loaders["train"]
+        loader.set_epoch(epoch - 1)
+        for i, (batch, _) in enumerate(self._batches(loader)):
+            metrics = self.train_step(self.state, batch)
+            _accumulate(sums, metrics)
+            n += 1
+            if i % self.cfg.trainer.log_interval == 0:
+                self.logger.info(f"epoch {epoch} step {i}: "
+                                 f"all_loss {_host_scalar(metrics['all_loss']):.4f}")
+        log = {f"train_{k}": v for k, v in _epoch_means(sums, n).items()}
+        log.update({f"val_{k}": v for k, v in self._run_split(self.loaders["val"]).items()})
+        if self.loaders["test"] is not None and epoch % self.cfg.trainer.test_every == 0:
+            log.update({f"test_{k}": v
+                        for k, v in self._run_split(self.loaders["test"]).items()})
+        return log
 
 
 class FinetuneTrainer(BaseTrainer):

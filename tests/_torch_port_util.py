@@ -5,10 +5,13 @@ over by ``evoke_tpu_torch.params``) go through the JAX package and the port,
 both on the CPU; JAX runs at float32 ``highest`` matmul precision
 (tests/conftest.py)."""
 
+import copy
 import functools
 
 import numpy as np
+import flax.linen as nn
 import jax
+import jax.numpy as jnp
 import torch
 
 TINY = dict(output_dim=64, encoder_hidden_size=32, encoder_num_layers=1,
@@ -80,3 +83,35 @@ class Tok:
 
 def torch_batch(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def no_dropout(next_fun, args, kwargs, context):
+    """flax interceptor: every nn.Dropout call returns its input."""
+    if isinstance(context.module, nn.Dropout) and context.method_name == "__call__":
+        return args[0]
+    return next_fun(*args, **kwargs)
+
+
+def recording(tx):
+    """An optax transformation whose state also carries the gradients it was
+    given (read after the jitted step)."""
+    import optax
+
+    def init(params):
+        return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        upd, inner = tx.update(grads, state[0], params)
+        return upd, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
+def damped(v):
+    """Variables with each Bottleneck's bn3 scale x 0.1 (keeps a
+    batch-statistics forward over a few images well conditioned)."""
+    v = copy.deepcopy(v)
+    for name, blk in v["params"]["visual_extractor"]["backbone"].items():
+        if name.startswith("layer"):
+            blk["bn3"]["scale"] = blk["bn3"]["scale"] * np.float32(0.1)
+    return v

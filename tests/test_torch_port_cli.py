@@ -216,8 +216,11 @@ def test_cli_help_unknown_and_unported(dataset, capsys, tmp_path):
                       "--trainer.result_dir", str(tmp_path)] + TINY) == 0
     assert os.path.exists(os.path.join(str(tmp_path), "mimic_cxr", "finetune", "v1",
                                        "checkpoint", "current", "state.pt"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli.main(["pretrain", "--device", "cpu"])
+    assert tcli.main(["pretrain", "--device", "cpu", "--data.ann_path", ann,
+                      "--data.image_dir", root, "--data.tokenizer_dir", str(tmp_path / "tok"),
+                      "--trainer.result_dir", str(tmp_path)] + TINY) == 0
+    assert os.path.exists(os.path.join(str(tmp_path), "mimic_cxr", "pretrain", "v1",
+                                       "checkpoint", "current", "state.pt"))
     with pytest.raises(ValueError, match="decode.engine='frobnicate'"):
         tcli.main(["serve", "--device", "cpu", "--decode.engine", "frobnicate"])
     with pytest.raises(NotImplementedError, match="A13"):

@@ -817,3 +817,96 @@ class TestTraining:
         assert model.text_decoder.logit.weight.dtype == torch.bfloat16
         moved = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])]
         assert "text_decoder.logit.bias" in moved
+
+
+PRETRAIN_TINY = {k: TRAIN_TINY[k] for k in ("output_dim", "encoder_hidden_size",
+                                             "encoder_num_layers", "encoder_num_heads",
+                                             "encoder_intermediate_size", "fusion_wide_qkv")}
+
+
+def _pretrain_step(model, batch):
+    """(losses, the gradients the optimizer got, the updated parameters) of
+    one pretrain step, dropout off, on the CPU."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    opt = build_optimizer("RAdam", "pretrain", model, **TRAIN_LR)
+    seen, step = {}, opt.step
+    opt.step = lambda g: seen.update({k: v.detach().float().cpu() for k, v in g.items()
+                                      if v is not None}) or step(g)
+    out = make_train_step(model, opt, 0, task="pretrain", dropout=False)(
+        TrainState(model, opt), batch)
+    return ({k: float(v) for k, v in out.items()}, seen,
+            {n: p.detach().float().cpu() for n, p in model.named_parameters()})
+
+
+class TestPretrain:
+    """The pretrain train step on the card against the CPU at float32, TF32
+    off, TestTraining's tolerances: each loss 1e-4 relative; gradients
+    outside the ResNet 1e-3 of (the leaf's largest + 1e-3 of the largest
+    gradient), the ResNet's 3e-2 in L2 norm relative; updated parameters
+    within the learning rate times their gradient's difference plus 1e-6
+    relative."""
+
+    def test_tiny_float32_step_card_equals_cpu(self, cuda_device):
+        import copy
+
+        from evoke_tpu_torch.models.pretrain import PretrainModel
+        from evoke_tpu_torch.params import init_params_
+
+        model = init_params_(PretrainModel(vocab_size=50, **PRETRAIN_TINY), 0)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bn3.weight"):
+                    p.mul_(0.1)
+        b = _train_batch(3)
+        cpu = _pretrain_step(copy.deepcopy(model), {k: torch.as_tensor(v) for k, v in b.items()})
+        card = _pretrain_step(copy.deepcopy(model).to(cuda_device),
+                              {k: torch.as_tensor(v).to(cuda_device) for k, v in b.items()})
+        for k, want in cpu[0].items():
+            assert math.isclose(card[0][k], want, rel_tol=1e-4, abs_tol=1e-6), k
+        gmax = max(g.abs().max().item() for g in cpu[1].values())
+        num = den = 0.0
+        for n, want in cpu[1].items():
+            got = card[1][n]
+            if n.startswith("visual_extractor."):
+                num += float(((got - want) ** 2).sum())
+                den += float((want ** 2).sum())
+                continue
+            assert (got - want).abs().max() <= 1e-3 * (want.abs().max() + 1e-3 * gmax), n
+        assert math.sqrt(num / den) <= 3e-2
+        for n, want in cpu[2].items():
+            zero = torch.zeros_like(want)
+            g_err = (card[1].get(n, zero) - cpu[1].get(n, zero)).abs()
+            assert ((card[2][n] - want).abs()
+                    <= TRAIN_LR["pt_lr"] * g_err * 1.01 + 1e-6 * want.abs() + 1e-7).all(), n
+
+
+class TestRetrieval:
+    """TopKIndex on the card against the CPU: integer-valued embeddings plant
+    exact ties (repeated rows across chunks), one query with fewer candidates
+    from other studies than k; ids equal, scores 1e-6. The database lives on
+    the host (streamed in chunks from pinned memory) or on the card."""
+
+    @pytest.mark.parametrize("where", ["host", "card"])
+    def test_topk_ids_card_equal_cpu(self, cuda_device, where):
+        from evoke_tpu_torch.retrieval.topk import TopKIndex
+
+        rng = np.random.default_rng(0)
+        db = rng.integers(-2, 3, size=(300, 24)).astype(np.float16)
+        db[[40, 150, 299]] = db[7]
+        codes = (np.arange(300) // 3).astype(np.int64)
+        codes[:290] = 5
+        queries = rng.integers(-2, 3, size=(50, 24)).astype(np.float16)
+        qcodes = np.arange(50, dtype=np.int64) + 1000
+        qcodes[0] = 5                        # 10 candidates from other studies, k 12
+        ids = [str(i) for i in range(300)]
+        want = TopKIndex(db, codes, ids, chunk_size=64, device="cpu").search(
+            queries, qcodes, 12, query_chunk=16)
+        source = torch.as_tensor(db) if where == "host" else torch.as_tensor(db).to(cuda_device)
+        index = TopKIndex(source, codes, ids, chunk_size=64, device=cuda_device)
+        got = index.search(queries, qcodes, 12, query_chunk=16)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+        assert list(got[1][0, 10:]) == [0, 0]
+        assert index.h2d_bytes == (db.nbytes * 4 if where == "host" else 0)  # 4 query chunks

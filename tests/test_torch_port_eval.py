@@ -530,8 +530,8 @@ def test_test_cli_refusals(cli_runs, monkeypatch, scorers, fake_chexbert, tmp_pa
     assert "resumed from current: epoch 5" in open(os.path.join(res, "test.log")).read()
     assert open(os.path.join(res, "test_prediction.csv"), "rb").read() == open(
         os.path.join(cli_runs["torch"], "test_prediction.csv"), "rb").read()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli.main(["retrieve", "--device", "cpu"] + common)
+    with pytest.raises(ValueError, match="Unknown config keys"):
+        tcli.main(["retrieve", "--device", "cpu", "--data.retrieve_tpok", "3"] + common)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(["test"] + common)

@@ -63,16 +63,10 @@ from evoke_tpu_torch.train import steps as tsteps
 from evoke_tpu_torch.train import trainer as ttrainer
 from evoke_tpu_torch.data.synthetic import write_synthetic_dataset
 
-from _torch_port_util import example_batch, tiny_pair, torch_batch
+from _torch_port_util import (damped, example_batch, no_dropout, recording, tiny_pair,
+                              torch_batch)
 
 torch.set_num_threads(2)
-
-
-def no_dropout(next_fun, args, kwargs, context):
-    """flax interceptor: every nn.Dropout call returns its input."""
-    if isinstance(context.module, nn.Dropout) and context.method_name == "__call__":
-        return args[0]
-    return next_fun(*args, **kwargs)
 
 
 def nest(flat):
@@ -293,15 +287,6 @@ def test_step_generator_is_a_function_of_seed_step_and_name():
 
 # ---- the train and eval steps ----
 
-def _damped(v):
-    """The tiny flagship's variables with each Bottleneck's bn3 scale x 0.1."""
-    v = copy.deepcopy(v)
-    for name, blk in v["params"]["visual_extractor"]["backbone"].items():
-        if name.startswith("layer"):
-            blk["bn3"]["scale"] = blk["bn3"]["scale"] * np.float32(0.1)
-    return v
-
-
 STEP_LR = dict(pt_lr=1e-2, ft_lr=3e-2, weight_decay=1e-4, grad_clip_value=0.1)
 
 
@@ -315,28 +300,13 @@ def step_batch():
     return b
 
 
-def _recording(tx):
-    """tx whose state also carries the gradients it was given (read after
-    the jitted step)."""
-    import optax
-
-    def init(params):
-        return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
-
-    def update(grads, state, params=None):
-        upd, inner = tx.update(grads, state[0], params)
-        return upd, (inner, grads)
-
-    return optax.GradientTransformation(init, update)
-
-
 @pytest.mark.parametrize("name,with_indication", [("RAdam", True), ("AdamW", False)])
 def test_train_step_equals_jax(name, with_indication, step_batch):
     jm, v0, tm0, _ = tiny_pair()
-    v = _damped(v0)
+    v = damped(v0)
     batch = step_batch
     # JAX: make_train_step + build_optimizer, dropout intercepted
-    tx = _recording(joptim.build_optimizer(name, "finetune", v["params"], **STEP_LR))
+    tx = recording(joptim.build_optimizer(name, "finetune", v["params"], **STEP_LR))
     jstate = jsteps.create_train_state(jax.tree_util.tree_map(jnp.asarray, v), tx)
     jstep = jsteps.make_train_step(jm, tx, jprng.root_key(0), with_indication=with_indication)
     with nn.intercept_methods(no_dropout):
@@ -726,8 +696,8 @@ def test_finetune_cli_refusals(finetune_runs, monkeypatch):
     common = finetune_runs["common"]("refused")
     with pytest.raises(ValueError, match="optim.optim='Radam'"):
         tcli.main(["finetune", "--device", "cpu", "--optim.optim", "Radam"] + common)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli.main(["pretrain", "--device", "cpu"] + common)
+    with pytest.raises(ValueError, match="Unknown config keys"):
+        tcli.main(["pretrain", "--device", "cpu", "--loss.pretrain_los", "mpc"] + common)
     with pytest.raises(FileNotFoundError):
         tcli.main(["finetune", "--device", "cpu", "--trainer.resume", "best"] + common)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
