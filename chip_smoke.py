@@ -141,8 +141,37 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    over the augmented annotation seeded from that slot (1 epoch), over phase
    9 (c)'s dataset at every default but bf16: walls, the partial-load report,
    K1 = K2 = K3 = 0;
-11. a JSON line of every ported kernel (launches: phase 4's captured run),
-   then the result line.
+11. the decoder zoo, ViT-B/32, every decoding mode and heatmaps, at full
+   width: (a) the flagship's encoder (ResNet-101 @ 224, wide-qkv grouped
+   fusion, 768x6 text encoder + BertCrossLayer) with each of
+   ``decoder_kind`` causal, bertgen and cmn (d 512 x 3, 8 heads, 30001
+   logits, bf16; CMN memory 2048 x 512, top-k 32) serves one batch of 64
+   studies (64 anchors + 64 aux, with indication) at beam 3 through
+   ReportServer, captured, after a warm-up batch: K1 must launch 3 times a
+   decode step and K2 never; at float32 on 2 studies the serving path
+   captured and eager must agree bit for bit (tokens, scores) and the eval
+   path's best beams agree with the serving path's (token agreement printed,
+   at least 0.9); (b) ViT-B/32 @ 224 with the flagship's R2Gen decoder over
+   the same batch: K1 = 3 and K2 = 1 a step; its encode ms a batch beside
+   ResNet-101's; (c) on the flagship, one batch of 64 in each decoding mode:
+   greedy with trigram blocking, sample at T 0.7, top-k 8, top-p 0.9,
+   sample_n 3, diverse beam (beam 6, group 2: K1 = 600 a batch), diverse
+   sampling (group 3), int8 caches at beam 3 (K1 = 0, K2 = 1 a step; the
+   others K1 = K2 = 0); greedy and diverse beam captured == eager at float32
+   on 2 studies; each sampled mode gives the same reports twice under one
+   seed and others under seed 1, and (but diverse sampling) every token it
+   samples at float32 on 2 studies, captured, lies in its step's kept set;
+   int8's reports are compared with a bf16-cache run on the same (reorder)
+   route and its cache bytes printed beside bf16's; (d) ``cli test
+   --trainer.plot_heatmaps 2`` in-process over phase 7's dataset and
+   configuration (run right after phase 7): one PNG per decoder layer and
+   word of the studies drawn, and the attention maps of a float32 copy of
+   the CLI's weights card vs CPU within ``HEATMAP_TOL``. Each part prints
+   reports/s, p50, peak GiB, capture seconds and its launch counts
+   (``--profile``: a profile of one batch of each zoo decoder, greedy,
+   diverse beam and int8);
+12. a JSON line of every ported kernel (launches: phase 4's captured run;
+   ``launches_phase11``: each phase 11 path's count), then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1928,6 +1957,476 @@ def stage1_cli(root, seed, smi):
     return out
 
 
+# ---- phase 11: the decoder zoo, ViT-B/32, every decoding mode, heatmaps ----
+
+ZOO_KINDS = ("causal", "bertgen", "cmn")
+# phase 11 (c): each mode's DecodeConfig on the flagship, and its expected
+# launches: K1 a decode step (diverse beam: a batch) and K2 a step
+DECODE_MODES = (
+    ("greedy trigram", dict(beam_size=1, sample_method="greedy", block_trigrams=True)),
+    ("sample T0.7", dict(beam_size=1, sample_method="sample", temperature=0.7)),
+    ("top_k 8", dict(beam_size=1, sample_method="top_k", top_k=8)),
+    ("top_p 0.9", dict(beam_size=1, sample_method="top_p", top_p=0.9)),
+    ("sample_n 3", dict(beam_size=1, sample_method="sample", sample_n=3)),
+    ("diverse beam 6/2", dict(beam_size=6, group_size=2)),
+    ("diverse sample 3", dict(beam_size=1, group_size=3, sample_method="sample")),
+    ("int8 beam 3", dict(beam_size=3, kv_cache_dtype="int8", suppress_unk=True)),
+)
+SAMPLED = ("sample T0.7", "top_k 8", "top_p 0.9", "sample_n 3", "diverse sample 3")
+# attention maps of the heatmaps, card vs CPU, float32 with TF32 off: the
+# ResNet, fusion and decoder sum float32 products in other orders
+HEATMAP_TOL = 1e-4
+
+
+class StepCount:
+    """Decode steps run by every loop class while active: each ``run``'s
+    ``steps_run`` (global steps for the diverse loops) is added up."""
+
+    def __enter__(self):
+        from evoke_tpu_torch.decode import beam
+
+        self.steps, self.runs, self._saved = 0, 0, []
+        for cls in (beam.BeamLoop, beam.SampleLoop, beam.DiverseBeamLoop,
+                    beam.DiverseSampleLoop):
+            run = cls.run
+
+            def counted(loop, _run=run):
+                out = _run(loop)
+                self.steps += loop.steps_run
+                self.runs += 1
+                return out
+
+            self._saved.append((cls, run))
+            cls.run = counted
+        return self
+
+    def __exit__(self, *exc):
+        for cls, run in self._saved:
+            cls.run = run
+
+
+def zero_launches():
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+
+    lineage_attention.launches = 0
+    fused_logit_topk.launches = 0
+
+
+def read_launches():
+    from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
+    from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+
+    return lineage_attention.launches, fused_logit_topk.launches
+
+
+def serve_one_batch(model, tok, cfg, batch, dev, what, max_len=100, profile=None,
+                    repeats=3):
+    """A ReportServer (captured) warmed on ``batch``, then ``batch`` served
+    ``repeats`` times in one call (depth 2, as phase 4) with every launch
+    count set to 0 first: the numbers, the warm-up's records, the records of
+    the first repeat and the server. Every repeat must give the same reports
+    (sampled modes reseed each batch), and launches and decode steps are
+    given a batch. ``profile`` (the fragments of the hand-written kernels the
+    path launches): one more batch under torch.profiler."""
+    from evoke_tpu_torch.serve import ReportServer
+
+    studies = len(batch["_image_ids"])
+    server = ReportServer(model, tok, cfg, max_seq_len=max_len, depth=2, device=dev)
+    warm = server.serve([batch], with_indication=True)
+    capture_s = server.stats["capture_s"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with StepCount() as steps:
+        records = server.serve([batch] * repeats, with_indication=True)
+        torch.cuda.synchronize()
+    n_k1, n_k2 = read_launches()
+    gen = server._gen[True]
+    if not all(loop.graphs for loop, _ in gen.loops.values()):
+        raise AssertionError(f"{what}: the decode steps were not captured")
+    if len(records) != repeats * studies or not all(r["report"].strip() for r in records):
+        raise AssertionError(f"{what}: {len(records)} records or an empty report")
+    first = records[:studies]
+    if any(r["report"] != f["report"] for i in range(1, repeats)
+           for r, f in zip(records[i * studies:(i + 1) * studies], first)):
+        raise AssertionError(f"{what}: a repeat of the batch gave other reports")
+    if n_k1 % repeats or n_k2 % repeats or steps.steps % repeats:
+        raise AssertionError(f"{what}: launches {n_k1}, {n_k2} and steps {steps.steps} "
+                             f"do not divide into {repeats} equal batches")
+    out = dict(reports_per_s=server.stats["reports_per_s"], wall_s=server.stats["wall_s"],
+               latency_p50_s=server.stats["batch_latency_p50_s"],
+               latency_p90_s=server.stats["batch_latency_p90_s"], batches=repeats,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, capture_s=capture_s,
+               launches_lineage=n_k1 // repeats, launches_fused=n_k2 // repeats,
+               steps=steps.steps // repeats)
+    if profile is not None:
+        out["profile"] = profile_serving(lambda: server.serve([batch], with_indication=True),
+                                         what=f"{what}, 1 batch", top=8, ported=profile)
+    return out, warm, first, server
+
+
+def float32_checks(model32, tok, cfg, small, dev, what, eval_path=True, max_len=100):
+    """Two studies at float32: the serving path captured and eager must give
+    the same tokens and scores bit for bit; with ``eval_path`` the eval path
+    (reorder caches) must give the same best beams (token agreement printed,
+    at least 0.9 as phase 3). Returns (agreement or None, serving tokens)."""
+    from evoke_tpu_torch.train.steps import make_generate_step
+
+    gens = [make_generate_step(model32, tok, cfg, max_len, with_indication=True,
+                               serving=True, device=dev, graphs=graphs, all_samples=True)
+            for graphs in (None, False)]
+    cap, eag = (g(small) for g in gens)
+    if not torch.equal(cap, eag):
+        raise AssertionError(f"{what}: captured and eager tokens differ at float32")
+    loops = [only_loop(g) for g in gens]
+    if not (loops[0].graphs and not loops[1].graphs):
+        raise AssertionError(f"{what}: captured / eager loops are not what was asked")
+    for name in ("done_score", "logp_sum"):
+        a, b = getattr(loops[0], name, None), getattr(loops[1], name, None)
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{what}: captured and eager {name} differ at float32")
+    agree = None
+    if eval_path:
+        ev = make_generate_step(model32, tok, cfg, max_len, with_indication=True,
+                                serving=False, device=dev, all_samples=True)(small)
+        agree = float((ev[:, 0] == cap[:, 0]).float().mean())
+        if agree < 0.9:
+            raise AssertionError(f"{what}: serving vs eval path best beams agree {agree}")
+    return agree, cap
+
+
+def kept_set_check(model32, tok, mode_kw, small, dev, max_len=100):
+    """A sampled mode at float32 on two studies, captured, trigram blocking
+    off: a logits hook copies each step's log-probs into a static buffer;
+    every token a row emits before its EOS must lie in that step's kept set
+    (``decode/beam.filter_logits``). Returns the tokens checked."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.decode.beam import NEG_INF, filter_logits
+    from evoke_tpu_torch.train.steps import make_generate_step, sampling_method
+
+    cfg = DecodeConfig(**dict(mode_kw, block_trigrams=False))
+    rows = 2 * max(int(cfg.sample_n), 1)
+    vocab = tok.get_vocab_size() + 1
+    rec = torch.empty(max_len, rows, vocab, device=dev)
+
+    def hook(logp, tok_, pos, batch):
+        rec[pos].copy_(logp)
+        return logp
+
+    gen = make_generate_step(model32, tok, cfg, max_len, with_indication=True, serving=True,
+                             device=dev, logits_hook=hook, all_samples=True)
+    seqs = gen(small).reshape(rows, max_len)
+    if not only_loop(gen).graphs:
+        raise AssertionError("kept-set check: the loop was not captured")
+    method, top_k, top_p = sampling_method(cfg)
+    checked = 0
+    for t in range(max_len):
+        kept = filter_logits(rec[t], method, float(cfg.temperature), top_k, top_p) > NEG_INF / 2
+        for r in range(rows):
+            if t and bool((seqs[r, :t] == tok.eos_id).any()):
+                continue
+            if not bool(kept[r, seqs[r, t]]):
+                raise AssertionError(f"kept set: row {r} step {t} token {int(seqs[r, t])} "
+                                     "outside it")
+            checked += 1
+    return checked
+
+
+def loop_cache_bytes(gen):
+    """Bytes of the self-attention caches (and int8 scales) of the longest
+    cache phase of ``gen``'s one loop."""
+    from evoke_tpu_torch.decode.beam import CACHE_KEYS, _leaves
+
+    st = only_loop(gen)._phases[-1]
+    return sum(t.numel() * t.element_size() for key in CACHE_KEYS if key in st
+               for t in _leaves(st[key]))
+
+
+def encode_ms(model, dev_batch, reps=5):
+    """Median CUDA-event ms of ``encode_for_decode`` over one batch."""
+    from evoke_tpu_torch.train.steps import maybe_normalize_images
+
+    b = maybe_normalize_images(dev_batch)
+    args = (b["images"], b["pids"], b["valid"], b["ids"].shape[0], b["inc_ids"],
+            b["inc_mask"])
+    times = []
+    with torch.inference_mode():
+        for i in range(reps + 1):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            model.encode_for_decode(*args)
+            e.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def phase11_models(vocab, tok, dev, seed, smi, rng, studies=64, image_size=224,
+                   max_len=100, with_profile=False):
+    """Phase 11 (a)-(c): the decoder zoo, ViT-B/32 and every decoding mode at
+    full width (bf16, one batch of ``studies`` studies each), with the
+    float32 checks on two studies. Returns the numbers."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.data.batching import to_device
+
+    out = {"zoo": {}, "modes": {}}
+    batch = example_batch(rng, studies, studies, image_size, max_len, vocab)
+    batch["_image_ids"] = [f"p11_s{j}" for j in range(studies)]
+    small = {k: torch.as_tensor(v).to(dev) for k, v in example_batch(
+        rng, 2, 2, image_size, max_len, vocab).items()}
+    ml = dict(max_len=max_len)
+    dev_batch, _ = to_device(batch, dev)
+    beam3 = DecodeConfig(beam_size=3, suppress_unk=True)
+
+    # (a) the decoder zoo on the flagship's encoder
+    for kind in ZOO_KINDS:
+        t0 = time.perf_counter()
+        model = flagship(vocab, torch.bfloat16, dev, seed, decoder_kind=kind)
+        rec, _, _, server = serve_one_batch(
+            model, tok, beam3, batch, dev, f"zoo {kind}",
+            profile=("lineage_kernel",) if with_profile else None, **ml)
+        del server, model
+        gc_cuda()
+        if rec["steps"] <= 0 or rec["launches_lineage"] != 3 * rec["steps"] \
+                or rec["launches_fused"] != 0:
+            raise AssertionError(f"zoo {kind}: launches K1 {rec['launches_lineage']} K2 "
+                                 f"{rec['launches_fused']} over {rec['steps']} steps "
+                                 "(want K1 = 3 a step, K2 = 0)")
+        model32 = flagship(vocab, torch.float32, dev, seed, decoder_kind=kind)
+        rec["serving_vs_eval_agreement"], _ = float32_checks(model32, tok, beam3, small, dev,
+                                                             f"zoo {kind}", **ml)
+        del model32
+        gc_cuda()
+        rec["phase_s"] = time.perf_counter() - t0
+        out["zoo"][kind] = rec
+        log(f"phase 11 zoo {kind} [{smi}]: d 512 x 3, bf16, beam 3, 3 x {studies} studies "
+            f"captured: "
+            f"reports_per_s={rec['reports_per_s']:.2f} p50={rec['latency_p50_s']:.4f}s "
+            f"p90={rec['latency_p90_s']:.4f}s wall={rec['wall_s']:.3f}s "
+            f"peak_mem_gib={rec['peak_mem_gib']:.2f} capture_s={rec['capture_s']:.2f}; "
+            f"launches a batch K1={rec['launches_lineage']} K2={rec['launches_fused']} over "
+            f"{rec['steps']} steps; float32 2 studies: captured == eager (tokens, scores), "
+            f"serving vs eval best-beam token agreement "
+            f"{rec['serving_vs_eval_agreement']:.4f}; {rec['phase_s']:.1f}s")
+
+    # (b) ViT-B/32 with the flagship's R2Gen decoder
+    t0 = time.perf_counter()
+    model = flagship(vocab, torch.bfloat16, dev, seed, visual_encoder="vit_b32")
+    vit_ms = encode_ms(model, dev_batch)
+    rec, _, _, server = serve_one_batch(model, tok, beam3, batch, dev, "vit_b32", **ml)
+    del server, model
+    gc_cuda()
+    if rec["steps"] <= 0 or rec["launches_lineage"] != 3 * rec["steps"] \
+            or rec["launches_fused"] != rec["steps"]:
+        raise AssertionError(f"vit_b32: launches K1 {rec['launches_lineage']} K2 "
+                             f"{rec['launches_fused']} over {rec['steps']} steps")
+    model = flagship(vocab, torch.bfloat16, dev, seed)
+    rec.update(encode_ms=vit_ms, resnet_encode_ms=encode_ms(model, dev_batch),
+               phase_s=time.perf_counter() - t0)
+    out["vit_b32"] = rec
+    log(f"phase 11 vit_b32 [{smi}]: ViT-B/32 @ {image_size} + R2Gen, bf16, beam 3, "
+        f"3 x {studies} studies "
+        f"captured: encode {vit_ms:.2f} ms a batch (ResNet-101: "
+        f"{rec['resnet_encode_ms']:.2f} ms), reports_per_s={rec['reports_per_s']:.2f} "
+        f"p50={rec['latency_p50_s']:.4f}s p90={rec['latency_p90_s']:.4f}s wall="
+        f"{rec['wall_s']:.3f}s peak_mem_gib={rec['peak_mem_gib']:.2f}; launches "
+        f"a batch K1={rec['launches_lineage']} K2={rec['launches_fused']} over "
+        f"{rec['steps']} steps")
+
+    # (c) every decoding mode on the flagship (``model``: R2Gen, ResNet-101, bf16)
+    model32 = flagship(vocab, torch.float32, dev, seed)
+    tokens = {}
+    for name, kw in DECODE_MODES:
+        t0 = time.perf_counter()
+        cfg = DecodeConfig(**kw)
+        fragments = {"diverse beam 6/2": ("lineage_kernel",), "greedy trigram": (),
+                     "int8 beam 3": PORTED_KERNELS[1:]}.get(name)
+        rec, warm, records, server = serve_one_batch(
+            model, tok, cfg, batch, dev, name,
+            profile=fragments if with_profile else None, **ml)
+        n_k1, n_k2, steps = rec["launches_lineage"], rec["launches_fused"], rec["steps"]
+        if name.startswith("diverse beam"):
+            ok = n_k1 == 2 * max_len * 3 and n_k2 == 0
+        elif name.startswith("int8"):
+            ok = n_k1 == 0 and n_k2 == steps > 0
+        else:
+            ok = n_k1 == 0 and n_k2 == 0
+        if not ok:
+            raise AssertionError(f"mode {name}: launches K1 {n_k1} K2 {n_k2} over {steps} "
+                                 "steps")
+        texts = [r["report"] for r in records]
+        tokens[name] = texts
+        if name in SAMPLED:
+            gen = server._gen[True]
+            if [r["report"] for r in warm] != texts:
+                raise AssertionError(f"mode {name}: the same seed gave other tokens")
+            gen.seed = 1
+            other = server.serve([batch], with_indication=True)
+            gen.seed = 0
+            rec["other_seed_reports_differing"] = sum(
+                a["report"] != b for a, b in zip(other, texts))
+            if rec["other_seed_reports_differing"] == 0:
+                raise AssertionError(f"mode {name}: another seed gave the same tokens")
+            if name != "diverse sample 3":
+                rec["kept_set_tokens_checked"] = kept_set_check(model32, tok, kw, small, dev,
+                                                                **ml)
+        elif name in ("greedy trigram", "diverse beam 6/2"):
+            float32_checks(model32, tok, cfg, small, dev, name, eval_path=False, **ml)
+        if name.startswith("int8"):
+            rec["cache_bytes"] = loop_cache_bytes(server._gen[True])
+            del server
+            _, _, ref, server = serve_one_batch(
+                model, tok, DecodeConfig(beam_size=3, suppress_unk=True, beam_kv="reorder"),
+                batch, dev, "bf16 caches", **ml)
+            rec["bf16_cache_bytes"] = loop_cache_bytes(server._gen[True])
+            rec["token_agreement_with_bf16_caches"] = sum(
+                a == b["report"] for a, b in zip(texts, ref)) / len(texts)
+            pairs = [(a.split(), b["report"].split()) for a, b in zip(texts, ref)]
+            rec["word_agreement_with_bf16_caches"] = sum(
+                sum(x == y for x, y in zip(a, b)) for a, b in pairs) / sum(
+                max(len(a), len(b)) for a, b in pairs)
+            rec["first_difference_median"] = statistics.median(
+                next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+                for a, b in pairs)
+        del server
+        gc_cuda()
+        rec["phase_s"] = time.perf_counter() - t0
+        out["modes"][name] = rec
+        extra = ""
+        if name in SAMPLED:
+            extra = (f"; same seed twice: equal; seed 1: "
+                     f"{rec['other_seed_reports_differing']}/{studies} reports differ")
+            if "kept_set_tokens_checked" in rec:
+                extra += (f"; float32 2 studies captured: "
+                          f"{rec['kept_set_tokens_checked']} tokens in their kept sets")
+        elif name in ("greedy trigram", "diverse beam 6/2"):
+            extra = "; float32 2 studies: captured == eager"
+        elif name.startswith("int8"):
+            extra = (f"; caches {rec['cache_bytes'] / 2 ** 20:.2f} MiB (bf16 "
+                     f"{rec['bf16_cache_bytes'] / 2 ** 20:.2f} MiB); reports equal to the "
+                     f"bf16-cache run (reorder) {rec['token_agreement_with_bf16_caches']:.4f}, "
+                     f"words in place {rec['word_agreement_with_bf16_caches']:.4f}, first "
+                     f"differing word (median) {rec['first_difference_median']}")
+        log(f"phase 11 mode {name} [{smi}]: 3 x {studies} studies captured: reports_per_s="
+            f"{rec['reports_per_s']:.2f} p50={rec['latency_p50_s']:.4f}s p90="
+            f"{rec['latency_p90_s']:.4f}s wall={rec['wall_s']:.3f}s peak_mem_gib="
+            f"{rec['peak_mem_gib']:.2f} capture_s={rec['capture_s']:.2f}; launches a batch "
+            f"K1={n_k1} K2={n_k2} over {steps} steps{extra}; {rec['phase_s']:.1f}s")
+    del model, model32
+    gc_cuda()
+    return out
+
+
+def heatmaps_cli(root, ann, tok_dir, has_ind, no_ind, smi, extra=(), devices=("cuda", "cpu")):
+    """Phase 11 (d): ``cli test --trainer.plot_heatmaps 2`` in-process over
+    phase 7's dataset and configuration (bf16). The PNG count must equal the
+    decoder layers times the words of the studies drawn; the attention maps
+    of a float32 copy of the CLI's weights on the card must match the same
+    on the CPU (the drawn studies and their views) within ``HEATMAP_TOL``."""
+    import contextlib
+    import io
+    import os
+
+    from evoke_tpu_torch import cli
+    from evoke_tpu_torch.evals import heatmaps
+
+    drawn, built = [], []
+    render, build = heatmaps.render_generation_heatmaps, cli.build_model
+
+    def recording_render(model, batch, seqs, tokenizer, out_dir, num_layers, **kw):
+        paths = render(model, batch, seqs, tokenizer, out_dir, num_layers, **kw)
+        drawn.append(dict(model=model, batch=batch, seqs=seqs, n=kw["max_studies"],
+                          tok=tokenizer, layers=num_layers, paths=paths,
+                          with_indication=kw["with_indication"]))
+        return paths
+
+    def recording_build(cfg, *a, **kw):
+        built.append(cfg)
+        return build(cfg, *a, **kw)
+
+    heatmaps.render_generation_heatmaps, cli.build_model = recording_render, recording_build
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["test", "--data.ann_path", ann, "--data.image_dir", root,
+                           "--data.tokenizer_dir", tok_dir,
+                           "--trainer.result_dir", os.path.join(root, "results"),
+                           "--trainer.version", "heatmaps", "--model.dtype", "bfloat16",
+                           "--trainer.plot_heatmaps", "2", *extra])
+        torch.cuda.synchronize()
+    finally:
+        heatmaps.render_generation_heatmaps, cli.build_model = render, build
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli test --trainer.plot_heatmaps returned {rc}")
+    out_dir = os.path.join(root, "results", "mimic_cxr", "test", "heatmaps", "attentions")
+    pngs = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs
+            if f.endswith(".png")]
+    want = 0
+    for d in drawn:
+        for i in range(d["n"]):
+            row = d["seqs"][i].tolist()
+            ends = [j for j, t in enumerate(row) if t in (d["tok"].pad_id, d["tok"].eos_id)]
+            want += d["layers"] * (ends[0] if ends else len(row))
+    if len(pngs) != want or sum(len(d["paths"]) for d in drawn) != want or not want:
+        raise AssertionError(f"heatmaps: {len(pngs)} PNGs, want {want}")
+
+    # the attention maps, card vs CPU, of a float32 copy of the weights
+    cfg = built[-1]
+    cfg.model.dtype = "float32"
+    d = drawn[0]
+    sd = {k: v.float() for k, v in d["model"].state_dict().items()}
+    n = d["n"]
+    b = {k: v for k, v in d["batch"].items()}
+    keep = [i for i in range(b["images"].shape[0]) if i < n or (
+        i >= b["ids"].shape[0] and 0 <= int(b["pids"][i]) < n and bool(b["valid"][i]))]
+    sub = {k: (v[keep] if k in ("images", "pids", "valid") else v[:n]) for k, v in b.items()}
+    seqs = d["seqs"][:n]
+    maps = {}
+    for where in devices:
+        model = build(cfg, d["tok"].get_vocab_size(), torch.device(where))
+        model.load_state_dict(sd)
+        model.eval()
+        batch = {k: v.to(where) for k, v in sub.items()}
+        maps[where] = attention_maps(model, batch, seqs, d["tok"], d["with_indication"])
+        del model
+    card, host = (maps[w] for w in devices)
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(card, host))
+    gc_cuda()
+    if not err <= HEATMAP_TOL:
+        raise AssertionError(f"heatmaps: attention maps card vs cpu {err} > {HEATMAP_TOL}")
+    res = dict(cli_wall_s=wall, pngs=len(pngs), studies=sum(x["n"] for x in drawn),
+               attention_max_abs_err=err)
+    log(f"phase 11 cli test --trainer.plot_heatmaps 2 [{smi}]: {len(pngs)} PNGs "
+        f"({res['studies']} studies x {drawn[0]['layers']} layers x their words), cli wall "
+        f"{wall:.1f}s; "
+        f"float32 attention maps card vs cpu max abs err {err:.3e} (tol {HEATMAP_TOL})")
+    return res
+
+
+def attention_maps(model, batch, seqs, tok, with_indication):
+    """The decoder layers' recorded cross-attention [n, h, T, P] of the
+    teacher-forced forward that ``evals/heatmaps`` draws."""
+    from evoke_tpu_torch.evals.heatmaps import cross_attention_modules, recorded_attention
+    from evoke_tpu_torch.train.steps import maybe_normalize_images
+
+    b = maybe_normalize_images(batch)
+    dev = b["ids"].device
+    bos = np.full((seqs.shape[0], 1), tok.bos_id, seqs.dtype)
+    ids = np.concatenate([bos, seqs[:, :-1]], axis=1)
+    mask = np.concatenate([bos * 0 + 1, seqs[:, :-1] != tok.pad_id], axis=1).astype(np.int32)
+    args = [b["images"], torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev),
+            b["pids"], b["valid"]]
+    if with_indication:
+        args += [b["inc_ids"], b["inc_mask"]]
+    with torch.no_grad(), recorded_attention(cross_attention_modules(model)) as rec:
+        model(*args, train=False)
+    return [r[0] for r in rec]
+
+
 def gc_cuda():
     import gc
 
@@ -1935,14 +2434,15 @@ def gc_cuda():
     torch.cuda.empty_cache()
 
 
-def flagship(vocab_size, dtype, dev, seed):
-    """__graft_entry__._flagship(vocab_size) at full width, seeded random weights."""
+def flagship(vocab_size, dtype, dev, seed, **kw):
+    """__graft_entry__._flagship(vocab_size) at full width, seeded random
+    weights; ``kw`` (decoder_kind, visual_encoder) swaps a part."""
     from evoke_tpu_torch.models.finetune import FinetuneModel
     from evoke_tpu_torch.params import init_params_
 
     with torch.device(dev):
         model = FinetuneModel(vocab_size=vocab_size, max_seq_len=100, fusion_max_partners=3,
-                              dtype=dtype)
+                              dtype=dtype, **kw)
     return init_params_(model, seed).eval()
 
 
@@ -1968,8 +2468,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, serve one more batch under torch.profiler "
                          "(and in phase 8 two loader batches through the continuous "
-                         "engine) and print device busy share, the top kernels and each "
-                         "hand-written kernel's total")
+                         "engine; in phase 11 one batch of each zoo decoder, greedy, "
+                         "diverse beam and int8) and print device busy share, the top "
+                         "kernels and each hand-written kernel's total")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -2140,6 +2641,10 @@ def main():
         t0 = time.perf_counter()
         test_res = test_cli(root, *data, smi, args.seed)
         log(f"test cli phase {time.perf_counter() - t0:.1f}s")
+        # phase 11 (d) runs here, over phase 7's dataset
+        t0 = time.perf_counter()
+        heat = heatmaps_cli(root, *data, smi)
+        log(f"phase 11 (d) heatmaps {time.perf_counter() - t0:.1f}s")
 
     # ---- phase 8: the continuous engine against the batch engine, forced lengths ----
     t0 = time.perf_counter()
@@ -2170,6 +2675,18 @@ def main():
         stage1 = stage1_cli(root, args.seed, smi)
     log(f"pretrain and retrieval phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- phase 11: the decoder zoo, ViT-B/32 and every decoding mode ----
+    t0 = time.perf_counter()
+    p11 = phase11_models(vocab, tok, dev, args.seed, smi, rng, with_profile=args.profile)
+    p11["heatmaps"] = heat
+    log(f"phase 11 (a)-(c) {time.perf_counter() - t0:.1f}s")
+    p11_k1 = {f"zoo {k}": r["launches_lineage"] for k, r in p11["zoo"].items()}
+    p11_k1.update({"vit_b32": p11["vit_b32"]["launches_lineage"]},
+                  **{k: r["launches_lineage"] for k, r in p11["modes"].items()})
+    p11_k2 = {f"zoo {k}": r["launches_fused"] for k, r in p11["zoo"].items()}
+    p11_k2.update({"vit_b32": p11["vit_b32"]["launches_fused"]},
+                  **{k: r["launches_fused"] for k, r in p11["modes"].items()})
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -2177,13 +2694,16 @@ def main():
     kernels = {"kernels": [
         dict(name="lineage_attention", route="cuda",
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
-             replaces="evoke_tpu/ops/lineage_attention.py:213", launches=n_k1, **main1),
+             replaces="evoke_tpu/ops/lineage_attention.py:213", launches=n_k1, **main1,
+             launches_phase11=p11_k1),
         dict(name="fused_logit_topk", route="cuda",
              source="evoke_tpu_torch/csrc/fused_logit_topk.cu",
-             replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2),
+             replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2,
+             launches_phase11=p11_k2),
         dict(name="masked_cross_view_attention", route="cuda",
              source="evoke_tpu_torch/csrc/fusion_attention.cu",
-             replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3),
+             replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3,
+             launches_phase11={}),
     ]}
     if args.out:
         detail = {
@@ -2209,7 +2729,7 @@ def main():
             "pretrain": {"train_step": pretrain_full, "card_vs_cpu": pretrain_check,
                          "losses_card_vs_cpu": losses_check, "retrieval_encode": encode,
                          "retrieval_search": search, "cli": stage1},
-            "kernels": kernels["kernels"], "profile": profile,
+            "phase11": p11, "kernels": kernels["kernels"], "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }
         with open(args.out, "w") as f:

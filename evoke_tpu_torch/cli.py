@@ -33,7 +33,10 @@ The tasks:
   always; CheXbert on the device when ``--metrics.chexbert_checkpoint`` is
   set; the other CE metrics when their packages and checkpoints are there),
   ``test_prediction.csv`` with the metric rows first, ``test.log``,
-  ``metrics.jsonl`` and ``config.json``;
+  ``metrics.jsonl`` and ``config.json``; ``--trainer.plot_heatmaps N``
+  then draws the cross-attention of every generated word of the first N
+  test studies over their image (``{result_dir}/attentions``, PNG), as
+  ``serve`` does too;
 - ``score``: the NLG metrics of a predictions file (``--data.ann_path``: a
   ``test_prediction.csv`` or JSON ``{"gts": {id: text}, "res": {id: text}}``)
   as JSON on stdout; runs on the host;
@@ -149,12 +152,6 @@ def metrics_fn_for(cfg, device="cuda"):
     return fn
 
 
-def _check_heatmaps(cfg) -> None:
-    if cfg.trainer.plot_heatmaps > 0:
-        raise NotImplementedError("trainer.plot_heatmaps > 0: attention heatmaps are "
-                                  "ROADMAP A12b")
-
-
 ENGINES = ("batch", "continuous")
 
 
@@ -164,7 +161,6 @@ def _check_serve_config(cfg) -> None:
     if cfg.decode.serve_dp:
         raise NotImplementedError(f"decode.serve_dp={cfg.decode.serve_dp}: multi-GPU "
                                   "serving is ROADMAP A13")
-    _check_heatmaps(cfg)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -193,8 +189,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _score(cfg)
     if task == "serve":
         _check_serve_config(cfg)
-    elif cfg_task != "pretrain":
-        _check_heatmaps(cfg)
     device = resolve_device(device)
 
     from evoke_tpu_torch.data.datasets import load_annotation
@@ -222,6 +216,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # Tester loads --trainer.load into the model (BaseTrainer._partial_load)
         Tester(cfg, model, tokenizer, eval_loaders={"test": loaders},
                metrics_fn=metrics_fn_for(cfg, device), device=device).test()
+        if cfg.trainer.plot_heatmaps > 0:
+            _plot_heatmaps(cfg, model, tokenizer, loaders, device)
         return 0
     if cfg.trainer.load:
         from evoke_tpu_torch.core.checkpoint import partial_restore_from
@@ -400,10 +396,46 @@ def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
             w.writerow([r["id"], r["report"], r.get("gt", "")])
     wall = sum(s["wall_s"] for s in stats)
     n = int(sum(s["reports"] for s in stats))
-    print(json.dumps({"reports": n, "wall_s": round(wall, 3),
-                      "reports_per_s": round(n / wall, 3) if wall else None,
-                      "prediction_csv": out_path}))
+    summary = {"reports": n, "wall_s": round(wall, 3),
+               "reports_per_s": round(n / wall, 3) if wall else None,
+               "prediction_csv": out_path}
+    if cfg.trainer.plot_heatmaps > 0:
+        _plot_heatmaps(cfg, model, tokenizer, test_loaders, device)
+    print(json.dumps(summary))
     return 0
+
+
+def _plot_heatmaps(cfg, model, tokenizer, test_loaders, device) -> List[str]:
+    """Cross-attention overlays of every generated word for the first
+    ``trainer.plot_heatmaps`` test studies (``evoke_tpu/cli.py``
+    _plot_heatmaps): the first batch of each test loader decoded on the eval
+    path, then ``evals/heatmaps.render_generation_heatmaps`` into
+    ``{result_dir}/attentions``. Returns the written paths."""
+    import numpy as np
+    import torch
+
+    from evoke_tpu_torch.evals.heatmaps import render_generation_heatmaps
+    from evoke_tpu_torch.train.steps import make_generate_step
+
+    n = cfg.trainer.plot_heatmaps
+    out_dir = os.path.join(cfg.result_dir, "attentions")
+    written: List[str] = []
+    for loader, with_ind in zip(test_loaders, (True, False)):
+        if loader is None or n <= 0:
+            continue
+        batch = next(iter(loader))
+        data = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+                if not k.startswith("_")}
+        gen = make_generate_step(model, tokenizer, cfg.decode, cfg.data.max_seq_len,
+                                 with_indication=with_ind, device=device)
+        seqs = gen(data).cpu().numpy()
+        take = min(n, int(np.asarray(batch["valid"])[: seqs.shape[0]].sum()))
+        written += render_generation_heatmaps(
+            model, data, seqs, tokenizer, out_dir, cfg.model.num_layers,
+            study_ids=list(batch["_image_ids"]), max_studies=take, with_indication=with_ind)
+        n -= take
+    print(f"wrote {len(written)} heatmap PNGs to {out_dir}")
+    return written
 
 
 def _score(cfg) -> int:

@@ -25,7 +25,9 @@ class ModelConfig:
     """Model dims (reference: config/finetune_config.yaml:14-66)."""
 
     # visual encoder
-    visual_encoder: str = "resnet101"           # resnet101 (vit_b32: ROADMAP A12b)
+    # resnet101 | vit_b32; the CLI, like the JAX CLI, builds resnet101 whatever
+    # this says (models/finetune.FinetuneModel takes visual_encoder)
+    visual_encoder: str = "resnet101"
     image_size: int = 224                        # 224 or 384
     visual_pool: str = "avg7"                    # avg7 (224 path) | mean (384 path)
     d_vf: int = 2048
@@ -43,7 +45,8 @@ class ModelConfig:
     sk_fusion_num_layers: int = 1
     fusion_intermediate_size: int = 2048
 
-    # text decoder (R2Gen-style; cmn: ROADMAP A12b)
+    # text decoder: r2gen | cmn | causal | bertgen; the CLI, like the JAX CLI,
+    # builds r2gen whatever this says (FinetuneModel takes decoder_kind)
     text_decoder: str = "r2gen"
     d_model: int = 512
     d_ff: int = 512
@@ -79,9 +82,12 @@ class ModelConfig:
 class DecodeConfig:
     """Report generation (reference: config/finetune_config.yaml:49-66).
 
-    The port runs ``sample_method="beam_search"`` with ``group_size=1``; every
-    other decode setting raises NotImplementedError (ROADMAP A12a). ``engine``
-    picks the serve task's engine; ``slots``, ``seg_steps``, ``dispatch_segs``
+    Every setting of the JAX package's decode runs
+    (``train/steps.make_generate_step``): beam search, diverse beam search
+    (``group_size`` > 1), greedy / sampled decoding (``sample_method`` greedy,
+    sample, gumbel, top_k, top_p or topN; ``sample_n`` rows a study), diverse
+    sampling and int8 KV caches (R2Gen only). ``engine`` picks the serve
+    task's engine; ``slots``, ``seg_steps``, ``dispatch_segs``
     and ``pack_batches`` configure the continuous one
     (decode/continuous.ContinuousServer)."""
 
@@ -101,7 +107,7 @@ class DecodeConfig:
     # 0 = auto: 1 on eval paths, 8 on the serving path (train/steps.py)
     cache_phases: int = 0
     beam_kv: str = "auto"                        # auto | reorder | ancestor
-    kv_cache_dtype: str = ""                     # "" only (int8: ROADMAP A12a)
+    kv_cache_dtype: str = ""                     # "" | int8 (R2Gen; not continuous)
     engine: str = "batch"                        # batch | continuous
     slots: int = 64
     seg_steps: int = 10
@@ -179,7 +185,7 @@ class TrainerConfig:
     log_interval: int = 100
     profile_epoch: int = 0
     profile_dir: str = ""
-    plot_heatmaps: int = 0                       # > 0: ROADMAP A12b
+    plot_heatmaps: int = 0                       # test / serve: heatmaps of N studies
 
 
 @dataclass

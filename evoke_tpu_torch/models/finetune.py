@@ -2,11 +2,13 @@
 
 Visual encoder -> multiview fusion -> projection head (affine-free final BN)
 -> BertCrossLayer co-attention over the encoded indication (or BertLayer
-self-attention without one) -> R2Gen decoder over the patch tokens (1:).
+self-attention without one) -> the text decoder over the patch tokens (1:).
 ``forward`` is the training forward (the LM loss of teacher-forced
 log-probs); ``encode_for_decode`` / ``decode_step`` are the decode surface.
-Only ``decoder_kind="r2gen"`` with ``visual_encoder="resnet101"`` is ported;
-the other decoders and ViT are ROADMAP A12b.
+``visual_encoder``: ``resnet101`` or ``vit_b32`` (``models/vit.py``);
+``decoder_kind``: ``r2gen`` (``models/rm_decoder.py``), ``cmn``
+(``models/cmn.py``), ``causal`` or ``bertgen`` (``models/causal_decoder.py``;
+both with d_ff = max(d_ff, 4 * d_model)), as the JAX module builds them.
 
 Dropout rates are the JAX module's: ``dropout`` in the decoder's sublayers,
 ``drop_prob_lm`` on its embedded image tokens, 0.1 in its relational memory,
@@ -29,6 +31,9 @@ from evoke_tpu_torch.models.resnet import VisualExtractor
 from evoke_tpu_torch.models.rm_decoder import RMDecoder
 from evoke_tpu_torch.models.text_encoder import TextEncoder
 
+DECODER_KINDS = ("r2gen", "cmn", "causal", "bertgen")
+VISUAL_ENCODERS = ("resnet101", "vit_b32")
+
 
 class FinetuneModel(nn.Module):
     def __init__(self, vocab_size: int, d_vf: int = 2048, output_dim: int = 2048,
@@ -42,21 +47,25 @@ class FinetuneModel(nn.Module):
                  rm_num_slots: int = 3, rm_num_heads: int = 8,
                  rm_d_model: int = 512, max_seq_len: int = 100,
                  is_multiview_learning: bool = True, decoder_kind: str = "r2gen",
-                 visual_encoder: str = "resnet101", encoder_dropout: float = 0.1,
+                 visual_encoder: str = "resnet101", cmm_size: int = 2048,
+                 cmm_dim: int = 512, cmn_topk: int = 32, encoder_dropout: float = 0.1,
                  remat_visual: bool = False, dtype=torch.float32):
         super().__init__()
-        if decoder_kind != "r2gen":
-            raise NotImplementedError(
-                f"decoder_kind={decoder_kind!r}: only r2gen is ported (ROADMAP A12b)")
-        if visual_encoder != "resnet101":
-            raise NotImplementedError(
-                f"visual_encoder={visual_encoder!r}: only resnet101 is ported (ROADMAP A12b)")
+        if decoder_kind not in DECODER_KINDS:
+            raise ValueError(f"decoder_kind={decoder_kind!r}: one of {DECODER_KINDS}")
+        if visual_encoder not in VISUAL_ENCODERS:
+            raise ValueError(f"visual_encoder={visual_encoder!r}: one of {VISUAL_ENCODERS}")
         self.decoder_kind = decoder_kind
         self.d_model = d_model
         self.dtype = dtype
         self.fusion_max_partners = fusion_max_partners
         self.is_multiview_learning = is_multiview_learning
-        self.visual_extractor = VisualExtractor(dtype=dtype, remat=remat_visual)
+        if visual_encoder == "vit_b32":
+            from evoke_tpu_torch.models.vit import ViTExtractor
+
+            self.visual_extractor = ViTExtractor(d_vf=d_vf, dtype=dtype)
+        else:
+            self.visual_extractor = VisualExtractor(dtype=dtype, remat=remat_visual)
         self.text_encoder = TextEncoder(vocab_size, encoder_hidden_size, encoder_num_layers,
                                         encoder_num_heads, encoder_intermediate_size,
                                         dtype=dtype, dropout_rate=encoder_dropout)
@@ -76,12 +85,24 @@ class FinetuneModel(nn.Module):
             selfl = BertLayer(output_dim, fusion_num_heads, fusion_intermediate_size, dtype)
             self.add_module(f"visual_self_atten_layers_{i}", selfl)
             self.visual_self_atten_layers.append(selfl)
-        self.text_decoder = RMDecoder(
-            vocab_size=vocab_size, d_model=d_model, d_ff=d_ff, d_vf=output_dim,
-            num_layers=num_layers, num_heads=num_heads, dropout_rate=dropout,
-            drop_prob_lm=drop_prob_lm, rm_num_slots=rm_num_slots,
-            rm_num_heads=rm_num_heads, rm_d_model=rm_d_model, max_seq_len=max_seq_len,
-            dtype=dtype)
+        dec = dict(vocab_size=vocab_size, d_model=d_model, d_vf=output_dim,
+                   num_layers=num_layers, num_heads=num_heads, dropout_rate=dropout,
+                   drop_prob_lm=drop_prob_lm, max_seq_len=max_seq_len, dtype=dtype)
+        if decoder_kind in ("causal", "bertgen"):
+            from evoke_tpu_torch.models.causal_decoder import (BertGenerationDecoder,
+                                                               CausalDecoder)
+
+            cls = BertGenerationDecoder if decoder_kind == "bertgen" else CausalDecoder
+            self.text_decoder = cls(d_ff=max(d_ff, 4 * d_model), **dec)
+        elif decoder_kind == "cmn":
+            from evoke_tpu_torch.models.cmn import CMNDecoder
+
+            self.text_decoder = CMNDecoder(d_ff=d_ff, cmm_size=cmm_size, cmm_dim=cmm_dim,
+                                           topk=cmn_topk, **dec)
+        else:
+            self.text_decoder = RMDecoder(d_ff=d_ff, rm_num_slots=rm_num_slots,
+                                          rm_num_heads=rm_num_heads, rm_d_model=rm_d_model,
+                                          **dec)
 
     def encode(self, images, pid_codes, valid, n_anchor: int,
                inc_ids: Optional[torch.Tensor] = None,
@@ -136,12 +157,19 @@ class FinetuneModel(nn.Module):
         att_mask = torch.ones(att_feats.shape[:2], dtype=torch.int32, device=hidden.device)
         return self.text_decoder.encode(att_feats, att_mask), att_mask
 
-    def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None):
+    def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None,
+                          kv_dtype: str = ""):
+        """``kv_dtype="int8"``: quantized caches (the R2Gen decoder's only)."""
+        if kv_dtype:
+            return self.text_decoder.init_decode_state(enc, batch, max_len, kv_dtype)
         return self.text_decoder.init_decode_state(enc, batch, max_len)
 
     def decode_step(self, tok, pos: int, state, att_mask, return_logits: bool = False,
                     age=None, return_topk: Optional[int] = None, topk_suppress=()):
+        """The text decoder's step; ``age`` (ring caches) and ``return_topk``
+        (the fused tail) are the R2Gen decoder's only."""
+        extra = {} if age is None else {"age": age}
+        if return_topk:
+            extra.update(return_topk=return_topk, topk_suppress=topk_suppress)
         return self.text_decoder.decode_step(tok, pos, state, att_mask,
-                                             return_logits=return_logits, age=age,
-                                             return_topk=return_topk,
-                                             topk_suppress=topk_suppress)
+                                             return_logits=return_logits, **extra)

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from evoke_tpu_torch.ops.lineage_attention import lineage_attention
+from evoke_tpu_torch.ops.lineage_attention import lineage_attention, lineage_masks
 
 NEG_INF = -1e9
 
@@ -209,6 +209,9 @@ def dot_attention(q, k, v, mask=None, dropout_fn=None):
     softmax, as the JAX package does (its decode-step lowering); otherwise
     scores are float32-exact products (``preferred_element_type=f32``)."""
     dk = q.shape[-1]
+    if k.dtype != q.dtype:        # bf16 queries over dequantized float32 caches
+        ct = torch.promote_types(q.dtype, k.dtype)
+        q, k = q.to(ct), k.to(ct)
     if q.shape[2] <= 4 and q.dtype == torch.bfloat16:
         scores = torch.matmul(q, k.transpose(-1, -2)).float()
     else:
@@ -224,7 +227,12 @@ def dot_attention(q, k, v, mask=None, dropout_fn=None):
 
 
 class MultiHeadAttention(nn.Module):
-    """Standard MHA with separate q/k/v/o projections (layers.py:81-163)."""
+    """Standard MHA with separate q/k/v/o projections (layers.py:81-163).
+
+    ``record``: None (the default) keeps nothing; a list collects the float32
+    probabilities [B, h, Tq, Tk] of every full-width ``attend`` (the JAX
+    module's ``sow("intermediates", "attn")``), for attention heatmaps
+    (``evals/heatmaps.recorded_attention``)."""
 
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
                  dropout_rate: float = 0.0):
@@ -233,6 +241,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.d_model = d_model
         self.dropout_rate = dropout_rate
+        self.record = None
         self.wq = Dense(d_model, d_model, dtype)
         self.wk = Dense(d_model, d_model, dtype)
         self.wv = Dense(d_model, d_model, dtype)
@@ -265,8 +274,10 @@ class MultiHeadAttention(nn.Module):
             return self.wo(out.transpose(1, 2).reshape(bq, tq, -1))
         q = self._split(self.wq(q_in))
         drop = None if rng is None else (lambda p: dropout(p, self.dropout_rate, rng))
-        out, _ = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask,
-                               dropout_fn=drop)
+        out, probs = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask,
+                                   dropout_fn=drop)
+        if self.record is not None:
+            self.record.append(probs.detach())
         return self.wo(self._merge(out))
 
     def forward(self, q_in, k_in, v_in, mask=None, rng=None):
@@ -284,37 +295,71 @@ class MultiHeadAttention(nn.Module):
         return self.wo(ctx[:, None, :])
 
 
-def cached_self_attention(attn, h, cache_k, cache_v, pos: int, anc=None, age=None):
+def quantized_cache_update(cache, scale, new, pos: int) -> None:
+    """Write ``new`` [N, 1, D] into the int8 cache [N, L, D] at slot ``pos``,
+    IN PLACE, with its per-slot absmax scale into ``scale`` [N, L] float32:
+    s = max(absmax(new) / 127, 1e-8), q = round(new / s) (half to even, as
+    ``jnp.round``) (layers.py:166-177)."""
+    new32 = new[:, 0].float()
+    s = torch.clamp_min(new32.abs().amax(-1) / 127.0, 1e-8)              # [N]
+    cache[:, pos] = torch.round(new32 / s[:, None]).to(torch.int8)
+    scale[:, pos] = s.to(scale.dtype)
+
+
+def dequantize(cache, scale, dtype):
+    """int8 [N, L, D] x per-slot scale [N, L] -> ``dtype`` (layers.py:180-187);
+    the cache itself when ``scale`` is None."""
+    if scale is None:
+        return cache
+    return cache.to(dtype) * scale[..., None].to(dtype)
+
+
+def cached_self_attention(attn, h, cache_k, cache_v, pos: int, anc=None, age=None,
+                          scale_k=None, scale_v=None):
     """Decode-step self-attention over the KV cache (layers.py:190-268).
 
     anc=None, age=None: causal read of the row's own cache (slots <= pos).
     age [N] without anc: ring caches, slot j readable iff (pos - j) mod L <= age.
     anc [B, k, L]: beam-lineage attention over un-permuted caches through
     ``attn.attend_lineage`` (the lineage kernel on the card, its plain
-    version on the CPU), batch mode or, with ``age``, ring mode. The int8
-    cache branch is ROADMAP A12a."""
-    if age is not None and anc is None:
-        lmax = cache_k.shape[1]
+    version on the CPU), batch mode or, with ``age``, ring mode.
+    scale_k / scale_v [N, L]: the caches are int8 (``quantized_cache_update``)
+    and are dequantized to the query's dtype first."""
+    if anc is not None and scale_k is None:
+        return attn.attend_lineage(h, cache_k, cache_v, anc, pos, age=age)
+    cache_k = dequantize(cache_k, scale_k, h.dtype)
+    cache_v = dequantize(cache_v, scale_v, h.dtype)
+    lmax = cache_k.shape[1]
+    if anc is not None:
+        # int8 caches in ancestor mode: JAX's XLA formulation (the lineage
+        # kernel reads bf16 / float32 caches), every query over its sample's
+        # k * L rows masked to its lineage
+        b, kbeam, _ = anc.shape
+        mask = lineage_masks(anc, pos, age)
+        return attn.attend(h, cache_k.reshape(b, kbeam * lmax, -1),
+                           cache_v.reshape(b, kbeam * lmax, -1), mask=mask)
+    if age is not None:
         delta = torch.remainder(pos - torch.arange(lmax, device=h.device), lmax)
         mask = (delta[None, :] <= age[:, None])[:, None, None, :]
         return attn.attend(h, cache_k, cache_v, mask=mask)
-    if anc is not None:
-        return attn.attend_lineage(h, cache_k, cache_v, anc, pos, age=age)
-    lmax = cache_k.shape[1]
     mask = (torch.arange(lmax, device=h.device) <= pos)[None, None, None, :]
     return attn.attend(h, cache_k, cache_v, mask=mask)
 
 
 class PositionwiseFFN(nn.Module):
+    """Dense -> ``activation`` (relu; the zoo's exact or tanh gelu) -> dropout
+    -> Dense."""
+
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, activation=F.relu):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.activation = activation
         self.Dense_0 = Dense(d_model, d_ff, dtype)
         self.Dense_1 = Dense(d_ff, d_model, dtype)
 
     def forward(self, x, rng=None):
-        return self.Dense_1(dropout(F.relu(self.Dense_0(x)), self.dropout_rate, rng))
+        return self.Dense_1(dropout(self.activation(self.Dense_0(x)), self.dropout_rate, rng))
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -469,3 +514,17 @@ class BertCrossLayer(nn.Module):
         x = self.attention(x, x, mask=self_mask, rng=rng)
         x = self.crossattention(x, enc, mask=cross_mask, rng=rng)
         return self.ffn(x, rng)
+
+    def prepare_cross_kv(self, enc):
+        return self.crossattention.project_kv(enc)
+
+    def step(self, x, cross_k, cross_v, cross_mask, cache_k, cache_v, pos: int, anc=None):
+        """One-token decode step (layers.py:480-498): x [N, 1, D]; caches
+        [N, L, D] written at ``pos`` in place; anc optional [B, k, L] (the
+        lineage route is ``BertAttentionBlock.attend_lineage``)."""
+        k_new, v_new = self.attention.project_kv(x)
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        x = cached_self_attention(self.attention, x, cache_k, cache_v, pos, anc)
+        x = self.crossattention.attend(x, cross_k, cross_v, mask=cross_mask)
+        return self.ffn(x), cache_k, cache_v

@@ -13,7 +13,9 @@ Dtypes follow the JAX package, which rounds at these places (bf16 compute):
 
 Unlike JAX, ``decode_step`` writes the new K/V into the caches IN PLACE (the
 returned state holds the same cache tensors): a decode state is used once.
-The int8 cache is ROADMAP A12a.
+``init_decode_state(kv_dtype="int8")`` keeps the caches as int8 with a
+float32 absmax scale per slot (``cache_k_scale`` / ``cache_v_scale`` [N, L]),
+dequantized at the attention (``layers.quantized_cache_update``).
 
 Training (``forward`` / ``decode_train``, teacher-forced over the whole
 report): the relational memory rolls over the target embeddings one step at a
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from evoke_tpu_torch.models.layers import (Dense, MultiHeadAttention, PositionwiseFFN,
                                            TokenEmbed, TorchLayerNorm,
                                            cached_self_attention, dropout, make_cross_mask,
-                                           make_self_mask)
+                                           make_self_mask, quantized_cache_update)
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
 
 
@@ -158,14 +160,22 @@ class RMDecoderLayer(nn.Module):
         return self.src_attn.project_kv(enc)
 
     def step(self, x, cross_k, cross_v, cross_mask, memory, cache_k, cache_v, pos: int,
-             anc=None, age=None):
+             anc=None, age=None, kv_scales=None):
         """x [N, 1, D]; memory [N, 1, S*D]; caches [N, L, D] written at ``pos``
-        in place; anc optional [B, k, L]; age optional [N] ring ages."""
+        in place; anc optional [B, k, L]; age optional [N] ring ages;
+        kv_scales (scale_k, scale_v) [N, L] when the caches are int8."""
         h = self.cln1(x, memory)
         k_new, v_new = self.self_attn.project_kv(h)
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
-        x = x + cached_self_attention(self.self_attn, h, cache_k, cache_v, pos, anc, age=age)
+        sk = sv = None
+        if kv_scales is None:
+            cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+            cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        else:
+            sk, sv = kv_scales
+            quantized_cache_update(cache_k, sk, k_new, pos)
+            quantized_cache_update(cache_v, sv, v_new, pos)
+        x = x + cached_self_attention(self.self_attn, h, cache_k, cache_v, pos, anc, age=age,
+                                      scale_k=sk, scale_v=sv)
         h = self.cln2(x, memory)
         x = x + self.src_attn.attend(h, cross_k, cross_v, mask=cross_mask)
         h = self.cln3(x, memory)
@@ -230,23 +240,31 @@ class RMDecoder(nn.Module):
         # upcast inside the softmax: no separate float32 copy of the logits
         return torch.log_softmax(logits, dim=-1, dtype=torch.float32)
 
-    def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None
-                          ) -> Dict[str, Any]:
+    def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None,
+                          kv_dtype: str = "") -> Dict[str, Any]:
         """Decode carry: relational memory, per-layer self-attn KV caches
-        [batch, L, D] and beam-invariant cross K/V (one row per sample)."""
+        [batch, L, D] and beam-invariant cross K/V (one row per sample).
+        ``kv_dtype="int8"``: int8 caches plus their per-slot scales."""
         lmax = max_len or self.max_seq_len
         cross = [layer.prepare_cross_kv(enc) for layer in self.dec_layers]
+        quant = kv_dtype == "int8"
+        cache_dt = torch.int8 if quant else self.dtype
 
-        def zeros():
-            return torch.zeros(batch, lmax, self.d_model, dtype=self.dtype, device=enc.device)
+        def zeros(*shape, dtype=cache_dt):
+            return tuple(torch.zeros(batch, lmax, *shape, dtype=dtype, device=enc.device)
+                         for _ in range(self.num_layers))
 
-        return {
+        state = {
             "memory": self.rm.init_memory(batch, enc.device),
-            "cache_k": tuple(zeros() for _ in range(self.num_layers)),
-            "cache_v": tuple(zeros() for _ in range(self.num_layers)),
+            "cache_k": zeros(self.d_model),
+            "cache_v": zeros(self.d_model),
             "cross_k": tuple(c[0] for c in cross),
             "cross_v": tuple(c[1] for c in cross),
         }
+        if quant:
+            state["cache_k_scale"] = zeros(dtype=torch.float32)
+            state["cache_v_scale"] = zeros(dtype=torch.float32)
+        return state
 
     def decode_step(self, tok, pos: int, state, att_mask, return_logits: bool = False,
                     age=None, return_topk: Optional[int] = None, topk_suppress=()):
@@ -261,11 +279,15 @@ class RMDecoder(nn.Module):
         mem = self.rm.step(x[:, 0, :], state["memory"])            # [N, S*D]
         cross_mask = make_cross_mask(att_mask)
         anc = state.get("anc")
+        quant = "cache_k_scale" in state
         new_k, new_v = [], []
         for i, layer in enumerate(self.dec_layers):
+            scales = ((state["cache_k_scale"][i], state["cache_v_scale"][i]) if quant
+                      else None)
             x, ck, cv = layer.step(x, state["cross_k"][i], state["cross_v"][i], cross_mask,
                                    mem[:, None, :], state["cache_k"][i],
-                                   state["cache_v"][i], pos, anc=anc, age=age)
+                                   state["cache_v"][i], pos, anc=anc, age=age,
+                                   kv_scales=scales)
             new_k.append(ck)
             new_v.append(cv)
         x = self.dec_norm(x)

@@ -9,6 +9,7 @@ flax path ``params/a/b/<leaf>`` becomes the torch key ``a.b.<name>``:
     LayerNorm / BatchNorm scale-> weight
     Embed embedding            -> weight
     TorchLayerNorm / CLN gamma, beta -> gamma, beta
+    raw self.param leaves cls, pos_embed (ViT), memory_matrix (CMN) -> same name
     batch_stats mean, var      -> running_mean, running_var
 
 This is the inverse of ``evoke_tpu/models/torch_import.py:59-64``. Loading
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight",
-                 "gamma": "gamma", "beta": "beta"}
+                 "gamma": "gamma", "beta": "beta", "cls": "cls", "pos_embed": "pos_embed",
+                 "memory_matrix": "memory_matrix"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -9,13 +9,17 @@ then the optax chain (``train/optim.py``); the metrics stay on the device.
 ``make_eval_step`` is the same forward with ``train=False``.
 
 ``make_generate_step`` returns ``generate_step(batch) -> seqs`` over a model
-that holds its own weights. The serving policy follows the JAX package's TPU
-policy: ``serving=True`` keeps ancestor-table caches read by the lineage
-kernel, an 8-phase cache schedule and the fused logit + top-k tail (on CPU
-tensors the kernels' plain versions run); eval paths (``serving=False``)
-resolve to reorder caches, one phase and the unfused tail, as in JAX. Only
-the beam path (beam_size > 1, group_size 1) is ported; greedy / sampled /
-diverse decoding and int8 caches are ROADMAP A12a.
+that holds its own weights. It dispatches as the JAX package does
+(att_model._sample's dispatch): beam search (beam_size > 1 with
+sample_method greedy / beam_search), diverse beam search (the same with
+group_size > 1), diverse sampling (group_size > 1 otherwise) and greedy /
+sampled decoding (``sample_n`` rows a study). The serving policy follows the
+JAX package's TPU policy: ``serving=True`` keeps ancestor-table caches read
+by the lineage kernel (reorder with int8 caches), an 8-phase cache schedule
+and, on the R2Gen beam path, the fused logit + top-k tail (on CPU tensors the
+kernels' plain versions run); eval paths (``serving=False``) resolve to
+reorder caches, one phase and the unfused tail, as in JAX. Diverse modes run
+one full-length cache phase, as JAX's do.
 
 ``logits_hook`` / ``topk_hook`` are the load-testing surface of the JAX
 package's ``make_generate_step``: they rewrite each step's candidates (for
@@ -32,7 +36,8 @@ import torch
 
 from evoke_tpu_torch.core import prng
 from evoke_tpu_torch.core.device import resolve_device
-from evoke_tpu_torch.decode.beam import BeamLoop
+from evoke_tpu_torch.decode.beam import (BeamLoop, DiverseBeamLoop, DiverseSampleLoop,
+                                         SampleLoop, make_sampler)
 from evoke_tpu_torch.models.layers import commit_batch_stats
 from evoke_tpu_torch.train.optim import Optimizer
 
@@ -144,14 +149,50 @@ def make_eval_step(model, with_indication: bool = False):
 
 def resolve_beam_kv(decode_cfg, serving: bool) -> str:
     """DecodeConfig.beam_kv 'auto' -> 'ancestor' on the serving path (the
-    lineage kernel on the card, its plain version on the CPU), 'reorder' on
+    lineage kernel on the card, its plain version on the CPU) unless the
+    caches are int8 (the kernel reads bf16 / float32 caches), 'reorder' on
     eval paths. An explicit value always wins."""
     beam_kv = str(getattr(decode_cfg, "beam_kv", "auto"))
     if beam_kv not in ("auto", "reorder", "ancestor"):
         raise ValueError(f"beam_kv must be auto|reorder|ancestor, got {beam_kv!r}")
     if beam_kv != "auto":
         return beam_kv
-    return "ancestor" if serving else "reorder"
+    int8 = str(getattr(decode_cfg, "kv_cache_dtype", "") or "") == "int8"
+    return "ancestor" if serving and not int8 else "reorder"
+
+
+def kv_cache_dtype(decode_cfg, model) -> str:
+    """DecodeConfig.kv_cache_dtype checked: '' or 'int8', and int8 only for
+    the R2Gen decoder (the only one with quantized caches, as in JAX)."""
+    kv = str(getattr(decode_cfg, "kv_cache_dtype", "") or "")
+    if kv not in ("", "int8"):
+        raise ValueError(f"kv_cache_dtype must be '' or 'int8', got {kv!r}")
+    kind = getattr(model, "decoder_kind", "r2gen")
+    if kv and kind != "r2gen":
+        raise NotImplementedError(f"kv_cache_dtype='int8' with decoder_kind={kind!r}: only "
+                                  "the R2Gen decoder implements quantized caches")
+    return kv
+
+
+def sampling_method(decode_cfg):
+    """(method, top_k, top_p) of the greedy / sampling paths, spelled as
+    caption_model.py:363-401 spells them (evoke_tpu/train/steps.py:352-364):
+    'beam_search' -> greedy, 'gumbel' -> sample, 'topN' -> top_k N (N >= 1)
+    or top_p N (0 < N < 1)."""
+    method = str(decode_cfg.sample_method)
+    top_k = int(getattr(decode_cfg, "top_k", 0))
+    top_p = float(getattr(decode_cfg, "top_p", 0.0))
+    method = {"beam_search": "greedy", "gumbel": "sample"}.get(method, method)
+    if method.startswith("top") and method not in ("top_k", "top_p"):
+        num = float(method[3:])
+        if 0 < num < 1:
+            method, top_p = "top_p", num
+        else:
+            method, top_k = "top_k", int(num)
+    if method not in ("greedy", "sample", "top_k", "top_p"):
+        raise ValueError(f"sample_method={decode_cfg.sample_method!r}: one of beam_search, "
+                         "greedy, sample, gumbel, top_k, top_p or topN")
+    return method, top_k, top_p
 
 
 def use_fused_topk(model, decode_cfg, serving: bool) -> bool:
@@ -173,75 +214,108 @@ def cache_schedule(decode_cfg, max_seq_len: int, serving: bool):
 def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
                        with_indication: bool = False, serving: bool = False,
                        all_samples: bool = False, device="cuda", graphs=None,
-                       logits_hook=None, topk_hook=None):
-    """-> ``generate_step(batch) -> seqs [n_anchor, L]`` ([n_anchor, beam, L]
-    with ``all_samples``). ``batch`` holds tensors on ``device``: images
+                       logits_hook=None, topk_hook=None, seed: int = 0):
+    """-> ``generate_step(batch) -> seqs [n_anchor, L]``. With ``all_samples``
+    every candidate: [n_anchor, beam, L] beams best-first (plain and diverse
+    beam search), [n_anchor, group_size, L] for diverse sampling,
+    [n_anchor, sample_n, L] for ``sample_n`` > 1 (study-major rows, as
+    ``jnp.repeat``); greedy / sampled decoding of one row a study returns
+    [n_anchor, L] either way. ``batch`` holds tensors on ``device``: images
     [B, H, W, 3] (uint8 or normalised float), ids [n_anchor, T] (its first
     dim is the anchor count), pids [B], valid [B], and with_indication
     inc_ids / inc_mask.
 
-    The step keeps one ``BeamLoop`` per batch shape (``generate_step.loops``):
-    on a CUDA device the loop's steps are captured into CUDA graphs at the
-    shape's first batch and replayed for every later one, so the step returns
-    while the card still runs the batch's last cache phase; ``seqs`` is a new
-    tensor, queued on the current stream before any later batch's copies into
-    the loop's buffers. ``graphs=False`` runs the same steps eagerly (the
-    CPU's path; on the card for an A/B).
+    The step keeps one loop per batch shape (``generate_step.loops``:
+    ``decode/beam.BeamLoop``, ``SampleLoop``, ``DiverseBeamLoop`` or
+    ``DiverseSampleLoop``, by ``generate_step.mode``): on a CUDA device the
+    loop's steps are captured into CUDA graphs at the shape's first batch and
+    replayed for every later one, so the step returns while the card still
+    runs the batch's last steps; ``seqs`` is a new tensor, queued on the
+    current stream before any later batch's copies into the loop's buffers.
+    ``graphs=False`` runs the same steps eagerly (the CPU's path; on the card
+    for an A/B). Sampled modes draw from a generator reseeded from
+    ``generate_step.seed`` (``seed``; it may be changed between batches) at
+    every batch, as JAX draws from ``jax.random.key(0)`` at every batch.
 
-    ``logits_hook(logits, tok, pos, batch) -> logits`` rewrites each step's
-    raw [N, V] logits before the top-k; it needs the full logits, so it
-    forces the unfused tail. ``topk_hook(vals, idx, lse, tok, pos, batch) ->
-    (vals, idx)`` rewrites the fused tail's [N, k] candidates instead and
-    keeps the fused tail; given both, the fused tail uses ``topk_hook`` and
-    ignores ``logits_hook`` (callers pass equivalent forcings). ``pos`` is the
-    step (a Python number); ``batch`` holds every entry of the batch but
-    ``images``, in buffers of the loop that each batch is copied into, so a
-    hook reads the current batch's values under replay too."""
+    ``logits_hook(scores, tok, pos, batch) -> scores`` rewrites each step's
+    per-row scores before token selection: raw [N, V] logits on the beam
+    path (it forces the unfused tail), log-probs on every other path.
+    ``topk_hook(vals, idx, lse, tok, pos, batch) -> (vals, idx)`` rewrites the
+    fused tail's [N, k] candidates instead and keeps the fused tail; given
+    both, the fused tail uses ``topk_hook`` and ignores ``logits_hook``
+    (callers pass equivalent forcings). ``pos`` is the step (a Python
+    number); ``batch`` holds every entry of the batch but ``images``, in
+    buffers of the loop that each batch is copied into, so a hook reads the
+    current batch's values under replay too."""
     device = resolve_device(device)
     beam = int(decode_cfg.beam_size)
     groups = max(int(decode_cfg.group_size), 1)
-    if not (beam > 1 and decode_cfg.sample_method in ("greedy", "beam_search")
-            and groups == 1):
-        raise NotImplementedError(
-            f"sample_method={decode_cfg.sample_method!r}, beam_size={beam}, "
-            f"group_size={groups}: only beam search (beam_size > 1, group_size 1) "
-            "is ported; greedy, sampled and diverse decoding are ROADMAP A12a")
-    if str(getattr(decode_cfg, "kv_cache_dtype", "") or ""):
-        raise NotImplementedError("kv_cache_dtype='int8' is ROADMAP A12a")
     sample_n = max(int(getattr(decode_cfg, "sample_n", 1)), 1)
-    if sample_n not in (1, beam):
+    kv = kv_cache_dtype(decode_cfg, model)
+    beam_path = beam > 1 and decode_cfg.sample_method in ("greedy", "beam_search")
+    if beam_path and sample_n not in (1, beam // groups):
         raise ValueError(f"sample_n={sample_n} with beam_size={beam}: on the beam path "
-                         "sample_n must be 1 or beam_size (each beam is a sample)")
+                         "sample_n must be 1 or beam_size//group_size (each beam is a "
+                         "sample; pass all_samples=True to receive them)")
+    if beam_path:
+        mode = "beam" if groups == 1 else "diverse_beam"
+    else:
+        mode = "diverse_sample" if groups > 1 else "sample"
+        method, top_k, top_p = sampling_method(decode_cfg)
+        make_sampler(method, float(decode_cfg.temperature), top_k, top_p)   # its checks
+        sampling = dict(sample_method=method, top_k=top_k, top_p=top_p,
+                        block_trigrams=bool(decode_cfg.block_trigrams),
+                        decoding_constraint=bool(decode_cfg.decoding_constraint))
     vocab = tokenizer.get_vocab_size() + 1
     common = dict(bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id,
-                  pad_id=tokenizer.pad_id, vocab_size=vocab, max_len=max_seq_len,
-                  beam_size=beam, length_penalty=decode_cfg.length_penalty)
+                  pad_id=tokenizer.pad_id, vocab_size=vocab, max_len=max_seq_len)
     suppress = (tokenizer.unk_id,) if decode_cfg.suppress_unk else ()
-    schedule = cache_schedule(decode_cfg, max_seq_len, serving)
-    ancestor_kv = resolve_beam_kv(decode_cfg, serving) == "ancestor"
-    fused = (use_fused_topk(model, decode_cfg, serving)
+    schedule = (cache_schedule(decode_cfg, max_seq_len, serving)
+                if mode in ("beam", "sample") else (max_seq_len,))
+    ancestor_kv = mode in ("beam", "diverse_beam") and \
+        resolve_beam_kv(decode_cfg, serving) == "ancestor"
+    fused = (mode == "beam" and use_fused_topk(model, decode_cfg, serving)
              and (logits_hook is None or topk_hook is not None))
     hooked = (topk_hook if fused else logits_hook) is not None
+    rows_per_study = {"beam": beam, "diverse_beam": beam // groups, "diverse_sample": 1,
+                      "sample": sample_n}[mode]
 
-    decoding_constraint = bool(decode_cfg.decoding_constraint)
-    loops = {}        # batch shape -> (BeamLoop, its attention-mask buffer)
+    def build(step, state0, b):
+        if mode == "beam":
+            contract = (dict(fused_topk=True) if fused else
+                        dict(suppress_ids=suppress,
+                             decoding_constraint=bool(decode_cfg.decoding_constraint)))
+            return BeamLoop(step, state0, b, cache_schedule=schedule, raw_logits=True,
+                            ancestor_kv=ancestor_kv, graphs=graphs, beam_size=beam,
+                            length_penalty=decode_cfg.length_penalty, **contract, **common)
+        if mode == "diverse_beam":
+            return DiverseBeamLoop(step, state0, b, beam_size=beam, group_size=groups,
+                                   diversity_lambda=decode_cfg.diversity_lambda,
+                                   length_penalty=decode_cfg.length_penalty,
+                                   ancestor_kv=ancestor_kv, graphs=graphs, **common)
+        if mode == "diverse_sample":
+            return DiverseSampleLoop(step, state0, b, group_size=groups,
+                                     temperature=decode_cfg.temperature,
+                                     diversity_lambda=decode_cfg.diversity_lambda,
+                                     graphs=graphs, **sampling, **common)
+        return SampleLoop(step, state0, b * sample_n, temperature=decode_cfg.temperature,
+                          cache_schedule=schedule, graphs=graphs, **sampling, **common)
+
+    loops = {}        # batch shape -> (loop, its attention-mask buffer)
     hook_batches = {}  # batch shape -> the hook's batch buffers
 
     def loop_for(state0, att_mask, b, hook_batch):
-        """The beam loop of this batch shape, built (and on the card captured)
-        at the shape's first batch. Its step reads the attention mask (and a
-        hook its batch) from buffers of its own, which every later batch's
-        values are copied into."""
-        key = (b, beam, tuple(att_mask.shape), state0["cross_k"][0].dtype, fused,
-               ancestor_kv, schedule,
+        """The loop of this batch shape, built (and on the card captured) at
+        the shape's first batch. Its step reads the attention mask (and a hook
+        its batch) from buffers of its own, which every later batch's values
+        are copied into."""
+        key = (b, tuple(att_mask.shape), state0["cross_k"][0].dtype,
                tuple((name, tuple(v.shape), v.dtype) for name, v in hook_batch.items()))
         if key not in loops:
             mask = att_mask.clone()
             hook_bufs = {name: v.clone() for name, v in hook_batch.items()}
             step_kw = (dict(return_topk=beam, topk_suppress=suppress) if fused
-                       else dict(return_logits=True))
-            contract = (dict(fused_topk=True) if fused else
-                        dict(suppress_ids=suppress, decoding_constraint=decoding_constraint))
+                       else dict(return_logits=mode == "beam"))
 
             def step(tok, pos, dstate):
                 out, st = model.decode_step(tok, pos, dstate, mask, **step_kw)
@@ -254,9 +328,7 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
                 return out, st
 
             hook_batches[key] = hook_bufs
-            loops[key] = (BeamLoop(step, state0, b, cache_schedule=schedule, raw_logits=True,
-                                   ancestor_kv=ancestor_kv, graphs=graphs, **contract,
-                                   **common), mask)
+            loops[key] = (build(step, state0, b), mask)
         return loops[key] + (hook_batches[key],)
 
     @torch.inference_mode()
@@ -266,18 +338,33 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
         inc = [batch["inc_ids"], batch["inc_mask"]] if with_indication else []
         enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
                                                 batch["valid"], b, *inc)
-        state0 = model.init_decode_state(enc, b * beam, schedule[0])
+        if mode == "sample" and sample_n > 1:
+            enc = enc.repeat_interleave(sample_n, dim=0)
+            att_mask = att_mask.repeat_interleave(sample_n, dim=0)
+        state0 = model.init_decode_state(enc, b * rows_per_study, schedule[0],
+                                         **({"kv_dtype": kv} if kv and mode in (
+                                             "beam", "sample") else {}))
         hook_batch = ({name: v for name, v in batch.items() if name != "images"}
                       if hooked else {})
         loop, mask, hook_bufs = loop_for(state0, att_mask, b, hook_batch)
         mask.copy_(att_mask)
         for name, v in hook_batch.items():
             hook_bufs[name].copy_(v)
-        loop.load(state0)
-        res = loop.run()
-        return res.seqs if all_samples else res.seqs[:, 0, :]
+        if mode in ("beam", "diverse_beam"):
+            loop.load(state0)
+            seqs = loop.run().seqs
+        else:
+            loop.load(state0, prng.stream_seed(generate_step.seed, 0, "decode-sample"))
+            seqs = loop.run()[0]
+            if mode == "sample":
+                if sample_n == 1:
+                    return seqs
+                seqs = seqs.reshape(b, sample_n, max_seq_len)
+        return seqs if all_samples else seqs[:, 0, :]
 
     generate_step.loops = loops
+    generate_step.seed = seed
+    generate_step.mode = mode
     generate_step.ancestor_kv = ancestor_kv
     generate_step.fused_topk = fused
     generate_step.schedule = schedule

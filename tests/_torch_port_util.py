@@ -115,3 +115,51 @@ def damped(v):
         if name.startswith("layer"):
             blk["bn3"]["scale"] = blk["bn3"]["scale"] * np.float32(0.1)
     return v
+
+
+ZOO = dict(cmn=dict(cmm_size=48, cmm_dim=32, cmn_topk=6), causal={}, bertgen={})
+
+
+def zoo_decoder(kind, vocab=50):
+    """The JAX text decoder FinetuneModel(decoder_kind=kind, **TINY) builds
+    (models/finetune.py's arguments)."""
+    from evoke_tpu.models.causal_decoder import BertGenerationDecoder, CausalDecoder
+    from evoke_tpu.models.cmn import CMNDecoder
+
+    common = dict(vocab_size=vocab, d_model=TINY["d_model"], d_vf=TINY["output_dim"],
+                  num_layers=TINY["num_layers"], num_heads=TINY["num_heads"],
+                  dropout_rate=0.0, drop_prob_lm=0.5, max_seq_len=TINY["max_seq_len"])
+    if kind == "cmn":
+        z = ZOO["cmn"]
+        return CMNDecoder(d_ff=TINY["d_ff"], cmm_size=z["cmm_size"], cmm_dim=z["cmm_dim"],
+                          topk=z["cmn_topk"], **common)
+    cls = BertGenerationDecoder if kind == "bertgen" else CausalDecoder
+    return cls(d_ff=max(TINY["d_ff"], 4 * TINY["d_model"]), **common)
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_pair(kind, vocab=50, seed=0):
+    """``tiny_pair``'s model with the text decoder of ``kind``: (jax model,
+    variables (tiny_pair's with the decoder's own init in ``text_decoder``,
+    its logit head sharpened), port model loaded with them, batch)."""
+    from evoke_tpu.models.finetune import FinetuneModel as JModel
+
+    from evoke_tpu_torch.models.finetune import FinetuneModel as TModel
+    from evoke_tpu_torch.params import load_flax_variables
+
+    _, v0, _, batch = tiny_pair(vocab, seed)
+    rng = np.random.default_rng(seed + 1)
+    dec = zoo_decoder(kind, vocab)
+    att = rng.normal(size=(2, 3, TINY["output_dim"])).astype(np.float32)
+    ids = rng.integers(1, vocab, size=(2, 5)).astype(np.int32)
+    dv = to_np(jax.jit(dec.init)(jax.random.key(seed + 1), att, np.ones((2, 3), np.int32), ids,
+                                 np.ones((2, 5), np.int32)))
+    head = dv["params"]["lm_head" if kind == "bertgen" else "logit"]
+    head["kernel"] = (rng.normal(size=head["kernel"].shape) * 1.5).astype(np.float32)
+    head["bias"] = (rng.normal(size=head["bias"].shape) * 0.5).astype(np.float32)
+    v = copy.deepcopy(v0)
+    v["params"]["text_decoder"] = dv["params"]
+    jm = JModel(vocab_size=vocab, drop_prob_lm=0.5, decoder_kind=kind, **ZOO[kind], **TINY)
+    tm = TModel(vocab_size=vocab, decoder_kind=kind, **ZOO[kind], **TINY).eval()
+    load_flax_variables(tm, v)
+    return jm, v, tm, batch

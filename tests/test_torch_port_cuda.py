@@ -910,3 +910,185 @@ class TestRetrieval:
         np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
         assert list(got[1][0, 10:]) == [0, 0]
         assert index.h2d_bytes == (db.nbytes * 4 if where == "host" else 0)  # 4 query chunks
+
+
+# ---- the other decoding modes and the decoder zoo on the card ----
+
+def _mode_case(dev, dtype, seed=0, kv_dtype=""):
+    """(decoder, step over its log-probs, state0 factory) of the R2Gen decoder
+    at full width (d 512, 8 heads, 30001 logits, 3 layers), 64 samples."""
+    from evoke_tpu_torch.models.rm_decoder import RMDecoder
+    from evoke_tpu_torch.params import init_params_
+
+    with torch.device(dev):
+        dec = init_params_(RMDecoder(vocab_size=_LOOP_VOCAB, num_layers=3, max_seq_len=30,
+                                     dtype=dtype), 0).eval()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    att = torch.randn(_LOOP_BATCH, 49, 2048, generator=g, device=dev).to(dtype)
+    mask = torch.ones(_LOOP_BATCH, 49, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        enc = dec.encode(att, mask)
+
+    def state0(rows, length):
+        with torch.inference_mode():
+            return dec.init_decode_state(enc, rows, length, kv_dtype)
+
+    def step(tok, t, st, **kw):
+        return dec.decode_step(tok, t, st, mask, **kw)
+
+    return dec, step, state0
+
+
+_IDS = dict(bos_id=_LOOP_VOCAB - 2, eos_id=_LOOP_VOCAB - 1, pad_id=0,
+            vocab_size=_LOOP_VOCAB + 1, max_len=30)
+
+
+class TestDecodingModes:
+    """SampleLoop, DiverseBeamLoop, DiverseSampleLoop and int8 caches at full
+    width: captured == eager bit for bit (the same kernels in the same order;
+    sampled modes draw the same numbers: the generator is reseeded at each
+    load and a replay advances it as the eager step does), the same seed twice
+    gives the same tokens and another seed others; replays count as launches."""
+
+    @pytest.mark.parametrize("method,kw", [("greedy", {}), ("sample", dict(temperature=0.7)),
+                                           ("top_k", dict(top_k=8)), ("top_p", dict(top_p=0.9))])
+    def test_sample_loop_captured_equals_eager(self, cuda_device, method, kw):
+        from evoke_tpu_torch.decode.beam import SampleLoop
+
+        _, step, state0 = _mode_case(cuda_device, torch.float32)
+        st = state0(_LOOP_BATCH, 8)
+        runs = []
+        for graphs in (True, False):
+            loop = SampleLoop(step, st, _LOOP_BATCH, sample_method=method,
+                              cache_schedule=_LOOP_SCHEDULE, graphs=graphs, **kw, **_IDS)
+            assert loop.graphs == graphs
+            out = []
+            for seed in (0, 0, 1):
+                loop.load(st, seed)
+                out.append([x.clone() for x in loop.run()])
+            torch.cuda.synchronize()
+            runs.append(out)
+        for a, b in zip(runs[0][0], runs[1][0]):
+            assert torch.equal(a, b)
+        assert torch.equal(runs[0][0][0], runs[0][1][0])            # seed 0 twice
+        assert torch.equal(runs[0][0][0], runs[0][2][0]) == (method == "greedy")
+        assert runs[0][0][0].unique().numel() > 3
+
+    @pytest.mark.parametrize("ancestor_kv", [False, True])
+    def test_diverse_beam_captured_equals_eager(self, cuda_device, ancestor_kv):
+        from evoke_tpu_torch.decode.beam import DiverseBeamLoop
+
+        _, step, state0 = _mode_case(cuda_device, torch.float32)
+        st = state0(_LOOP_BATCH * 3, 30)
+        res = []
+        for graphs in (True, False):
+            lineage_attention.launches = 0
+            loop = DiverseBeamLoop(step, st, _LOOP_BATCH, beam_size=6, group_size=2,
+                                   ancestor_kv=ancestor_kv, graphs=graphs, **_IDS)
+            lineage_attention.launches = 0
+            loop.load(st)
+            res.append(loop.run())
+            torch.cuda.synchronize()
+            # 2 groups x 30 active steps x 3 layers through the lineage kernel
+            assert lineage_attention.launches == (180 if ancestor_kv else 0)
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+        assert res[0].seqs.shape == (_LOOP_BATCH, 6, 30)
+
+    def test_diverse_sample_captured_equals_eager(self, cuda_device):
+        from evoke_tpu_torch.decode.beam import DiverseSampleLoop
+
+        _, step, state0 = _mode_case(cuda_device, torch.float32)
+        st = state0(_LOOP_BATCH, 30)
+        res = []
+        for graphs in (True, False):
+            loop = DiverseSampleLoop(step, st, _LOOP_BATCH, group_size=3,
+                                     sample_method="sample", graphs=graphs, **_IDS)
+            loop.load(st, 5)
+            res.append(loop.run())
+            torch.cuda.synchronize()
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_int8_beam_captured_equals_eager(self, cuda_device, dtype):
+        """Reorder caches (int8 keeps 'auto' off the lineage kernel), the fused
+        tail: K1 = 0, K2 = 1 a step."""
+        from evoke_tpu_torch.decode.beam import BeamLoop
+
+        _, step, state0 = _mode_case(cuda_device, dtype, kv_dtype="int8")
+        st = state0(_LOOP_BATCH * 3, 8)
+        assert st["cache_k"][0].dtype == torch.int8
+
+        def fused(tok, t, s):
+            return step(tok, t, s, return_topk=3, topk_suppress=(4,))
+
+        res = []
+        for graphs in (True, False):
+            loop = BeamLoop(fused, st, _LOOP_BATCH, beam_size=3, raw_logits=True,
+                            fused_topk=True, cache_schedule=_LOOP_SCHEDULE, early_stop=False,
+                            graphs=graphs, **_IDS)
+            lineage_attention.launches = fused_logit_topk.launches = 0
+            loop.load(st)
+            res.append(loop.run())
+            torch.cuda.synchronize()
+            assert (lineage_attention.launches, fused_logit_topk.launches) == (0, 30)
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+
+
+ZOO_CARD = dict(output_dim=64, encoder_hidden_size=32, encoder_num_layers=1,
+                encoder_num_heads=2, encoder_intermediate_size=64, d_model=64, d_ff=64,
+                num_heads=2, num_layers=2, rm_d_model=64, fusion_num_heads=2,
+                fusion_intermediate_size=64, sk_fusion_num_layers=1, max_seq_len=16,
+                fusion_wide_qkv=False)
+
+
+class TestZoo:
+    """Each decoder and ViT-B/32 in a small FinetuneModel (head dim 32, the
+    lineage kernel's smallest), float32: the serving path on the card (the
+    lineage kernel, captured) gives the CPU's tokens (the plain version).
+    R2Gen runs its fused tail (K2) on the card and its plain version here."""
+
+    @pytest.mark.parametrize("kind,visual", [("cmn", "resnet101"), ("causal", "resnet101"),
+                                             ("bertgen", "resnet101"), ("r2gen", "vit_b32")])
+    def test_serving_card_equals_cpu(self, cuda_device, kind, visual):
+        import copy
+
+        from evoke_tpu_torch.core.config import DecodeConfig
+        from evoke_tpu_torch.models.finetune import FinetuneModel
+        from evoke_tpu_torch.params import init_params_
+        from evoke_tpu_torch.train.steps import make_generate_step
+
+        class Tok:
+            bos_id, eos_id, pad_id, unk_id = 48, 49, 0, 4
+
+            def get_vocab_size(self):
+                return 50
+
+        extra = dict(cmm_size=64, cmm_dim=64, cmn_topk=8) if kind == "cmn" else {}
+        model = init_params_(FinetuneModel(vocab_size=50, decoder_kind=kind,
+                                           visual_encoder=visual, **ZOO_CARD, **extra), 0)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.startswith("text_decoder.") and name.endswith(("logit.weight",
+                                                                       "lm_head.weight")):
+                    p.mul_(8.0)
+        b = _train_batch(2)
+        out = {}
+        for dev in ("cpu", cuda_device):
+            m = copy.deepcopy(model).to(dev).eval()
+            gen = make_generate_step(m, Tok(), DecodeConfig(beam_size=3), 16,
+                                     with_indication=True, serving=True, all_samples=True,
+                                     device=dev)
+            lineage_attention.launches = 0
+            out[str(dev)] = gen({k: torch.as_tensor(v).to(dev) for k, v in b.items()}).cpu()
+            if dev != "cpu":
+                (loop, _), = gen.loops.values()
+                # 2 layers a step: the eager step of each cache phase before the
+                # capture, then the steps replayed
+                assert loop.graphs and lineage_attention.launches == 2 * (
+                    len(gen.schedule) + loop.steps_run)
+        assert torch.equal(out["cpu"], out["cuda"])
+        assert out["cpu"].unique().numel() > 3

@@ -113,14 +113,6 @@ def test_bf16_decode_step_dtypes_and_logits():
                                    rtol=2e-2)
 
 
-@pytest.mark.parametrize("bad", ["cmn", "causal"])
-def test_other_decoders_are_not_ported(bad):
-    from evoke_tpu_torch.models.finetune import FinetuneModel
-
-    with pytest.raises(NotImplementedError, match="A12"):
-        FinetuneModel(vocab_size=10, decoder_kind=bad)
-
-
 @pytest.mark.parametrize("kw", [
     dict(),                                                     # log-prob path
     dict(raw_logits=True, suppress_ids=(4,), decoding_constraint=True,

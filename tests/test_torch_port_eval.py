@@ -501,10 +501,50 @@ def test_test_cli_without_pandas_sklearn_nltk_transformers(cli_runs, tmp_path, m
     assert tcli.main(["score", "--data.ann_path", path]) == 0
 
 
+def _pngs(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs if f.endswith(".png"))
+
+
 def test_test_cli_refusals(cli_runs, monkeypatch, scorers, fake_chexbert, tmp_path):
+    """``--trainer.plot_heatmaps 2`` first: the port's test CLI writes the
+    files JAX's writes (the same names; pixels within one level of 255: the
+    attention maps agree to float32 rounding and a level boundary may fall
+    between them), one PNG per decoder layer and generated word of the two
+    studies drawn; then the refusals and --trainer.resume."""
+    from PIL import Image
+
     common = cli_runs["common"]
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tcli.main(["test", "--device", "cpu", "--trainer.plot_heatmaps", "2"] + common)
+    plain = common[:common.index("--metrics.chexbert_checkpoint")] + \
+        common[common.index("--metrics.chexbert_checkpoint") + 2:]
+    runs = {}
+    for side in ("jax", "torch"):
+        argv = list(plain)
+        argv[argv.index("--trainer.result_dir") + 1] = str(tmp_path / f"heat_{side}")
+        argv += ["--trainer.plot_heatmaps", "2"]
+        if side == "jax":
+            assert jcli.main(["test"] + argv) == 0
+        else:
+            assert tcli.main(["test", "--device", "cpu", "--trainer.load",
+                              cli_runs["weights"]] + argv) == 0
+        runs[side] = str(tmp_path / f"heat_{side}" / "mimic_cxr" / "test" / "v1" /
+                         "attentions")
+    names = _pngs(runs["torch"])
+    assert names == _pngs(runs["jax"])
+    studies = {n.split(os.sep)[0] for n in names}
+    layers = int(plain[plain.index("--model.num_layers") + 1])
+    assert len(studies) == 2 and {n.split(os.sep)[1] for n in names} == {
+        f"layer_{i}" for i in range(layers)}
+    preds = {r[0]: r[-1] for r in _rows(os.path.join(cli_runs["torch"],
+                                                     "test_prediction.csv"))}
+    assert len(names) == layers * sum(len(preds[s].split()) for s in studies)
+    worst = 0
+    for n in names:
+        got = np.asarray(Image.open(os.path.join(runs["torch"], n)), np.int16)
+        want = np.asarray(Image.open(os.path.join(runs["jax"], n)), np.int16)
+        assert got.shape == want.shape == (32, 32, 3)
+        worst = max(worst, int(np.abs(got - want).max()))
+    assert worst <= 1, worst
     # --trainer.resume auto, as JAX's Tester does through BaseTrainer._resume:
     # no slot yet starts fresh; a slot's weights are restored
     monkeypatch.setitem(tcomposite._SCORER_CACHE, f"chexbert:{fake_chexbert[0]}:cpu",

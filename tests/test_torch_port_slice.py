@@ -8,8 +8,8 @@ give token-identical sequences to the JAX package in both cache modes
   the JAX side forced onto its Pallas kernels in interpret mode).
 
 Plus the whole encoder side (encode_for_decode, rtol 1e-3 for the ResNet
-depth), generate_stream's ordering, the tokenizer and config copies, and the
-refusal of unported settings."""
+depth), generate_stream's ordering and the tokenizer and config copies (the
+other decoding modes: tests/test_torch_port_decoding_modes.py)."""
 
 import numpy as np
 import pytest
@@ -87,13 +87,6 @@ def test_generate_stream_order_and_depth():
         assert [h["_idx"] for h, _ in out] == list(range(7))
         assert [int(s[0, 0]) for _, s in out] == list(range(7))
         assert calls == list(range(7))
-
-
-@pytest.mark.parametrize("cfg", [dict(sample_method="sample"), dict(beam_size=1),
-                                 dict(group_size=3), dict(kv_cache_dtype="int8")])
-def test_unported_decode_settings_raise(cfg):
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_generate_step(object(), Tok(VOCAB), DecodeConfig(**cfg), 16, device="cpu")
 
 
 def test_config_and_tokenizer_copies_agree(tmp_path):
