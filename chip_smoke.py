@@ -170,8 +170,31 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    reports/s, p50, peak GiB, capture seconds and its launch counts
    (``--profile``: a profile of one batch of each zoo decoder, greedy,
    diverse beam and int8);
-12. a JSON line of every ported kernel (launches: phase 4's captured run;
-   ``launches_phase11``: each phase 11 path's count), then the result line.
+12. an EVOKE checkpoint imported and served: (a) a FineTune state dict in
+   EVOKE's released layout (``models/evoke_layout.py``: ResNet-101 under
+   ``visual_extractor.model.{0,1,4..7}``, the 768x6 text encoder, wide-qkv
+   fusion, both projection heads, the co-attention stacks, the R2Gen
+   decoder d 512 x 3 with 30001 logits, every BatchNorm's
+   ``num_batches_tracked``) is drawn from the seed and written with
+   ``torch.save`` (its GiB printed); (b) ``load_finetune_checkpoint`` fills
+   a freshly initialised bf16 flagship on the card: seconds in ``torch.load``
+   and in the import, the report, which must be every mapped tensor loaded
+   and 0 mismatched, 0 missing (JAX's counts for this layout,
+   tests/test_torch_port_torch_import.py), and every imported tensor
+   bit-equal on the card to its source cast to bf16; (c) one 64-study batch
+   (64 anchors + 64 aux, with indication) served at bf16, beam 3, through
+   ReportServer, captured, after a warm-up batch, 3 times at depth 2 (as
+   phase 11): reports/s, p50, peak GiB, capture seconds, K1 = 300, K2 =
+   100, K3 = 0 a batch; a float32 flagship
+   importing the same tensors decodes 2 studies on the card and on the CPU
+   and the best beams must be identical; (d) the port's native library is
+   built with g++ (run with phase 7's dataset: ``NativeWordLevel`` against the
+   Python ``WordTokenizer`` on every report) and ``core.profiling``'s
+   ``capture_trace`` around the served batch gives a digest whose loop ops
+   hold ``lineage_kernel``;
+13. a JSON line of every ported kernel (launches: phase 4's captured run;
+   ``launches_phase11``: each phase 11 path's count; ``launches_phase12``:
+   phase 12's served batch), then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -2427,6 +2450,192 @@ def attention_maps(model, batch, seqs, tok, with_indication):
     return [r[0] for r in rec]
 
 
+# ---- phase 12: an EVOKE checkpoint imported and served ----
+
+# JAX's report counts for EVOKE's layout at the flagship's widths: every
+# tensor but the BatchNorm counters and BERT's pooler loads, none is
+# mismatched or missing (tests/test_torch_port_torch_import.py holds the
+# port's importer to JAX's on this layout at the tiny widths)
+IMPORT_MISMATCHED, IMPORT_MISSING = 0, 0
+
+
+def native_tokenizer_check(ann, tok_dir, smi):
+    """Phase 12 (d), run over phase 7's dataset: the port's native library
+    built with g++ (a failed build fails), its WordLevel encoder against the
+    Python WordTokenizer on every report of the annotation."""
+    import os
+
+    from evoke_tpu_torch.data.datasets import load_annotation
+    from evoke_tpu_torch.data.tokenizer import WordTokenizer
+    from evoke_tpu_torch.native import NativeWordLevel, build_native
+
+    t0 = time.perf_counter()
+    path = build_native()
+    if path is None:
+        raise AssertionError("phase 12: g++ failed to build the native library")
+    build_s = time.perf_counter() - t0
+    tok = WordTokenizer.from_file(os.path.join(
+        tok_dir, "mimic_cxr_wordlevel_uncased_tokenizer.json"))
+    texts = [r["report"] for split in load_annotation(ann).values() for r in split]
+    nat = NativeWordLevel(tok.vocab, tok.unk_id)
+    t0 = time.perf_counter()
+    got = nat.encode_padded_batch(texts, 100, tok.pad_id)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.stack([tok.encode_padded(t, 100) for t in texts])
+    python_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError(f"phase 12 native tokenizer: {(got != want).any(1).sum()} of "
+                             f"{len(texts)} reports differ from WordTokenizer")
+    log(f"phase 12 native [{smi}]: g++ build {build_s:.1f}s ({os.path.basename(path)}); "
+        f"NativeWordLevel == WordTokenizer on {len(texts)} reports x 100 tokens (native "
+        f"{native_s * 1e3:.1f} ms, Python {python_s * 1e3:.1f} ms)")
+    return dict(build_s=build_s, reports=len(texts), native_ms=native_s * 1e3,
+                python_ms=python_s * 1e3)
+
+
+def bits_differ(a, b):
+    """Elements of ``a`` and ``b`` (one dtype, on the card) whose bits differ,
+    as a device tensor."""
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (a.view(view) != b.view(view)).sum()
+
+
+def imported_checkpoint(vocab, tok, cfg, dev, seed, smi, rng):
+    """Phase 12 (a)-(c) and the digest of (d). Returns the phase's numbers."""
+    import copy
+    import os
+
+    from evoke_tpu_torch.core.profiling import capture_trace, format_summary, summarize_trace
+    from evoke_tpu_torch.models import torch_import
+    from evoke_tpu_torch.models.evoke_layout import evoke_to_port_key, finetune_state_dict
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.train.steps import make_generate_step
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as root:
+        # (a) the checkpoint
+        t0 = time.perf_counter()
+        sd = finetune_state_dict(seed, vocab)
+        out["fabricate_s"] = time.perf_counter() - t0
+        path = os.path.join(root, "model_best.pth")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": sd}, path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_gib"] = os.path.getsize(path) / 2 ** 30
+        out["tensors"] = len(sd)
+        out["params"] = sum(v.numel() for v in sd.values())
+        log(f"phase 12 checkpoint: {len(sd)} tensors, {out['params'] / 1e6:.1f} M values, "
+            f"{out['file_gib']:.3f} GiB (drawn {out['fabricate_s']:.1f}s, torch.save "
+            f"{out['save_s']:.1f}s)")
+
+        # (b) load into a freshly initialised bf16 flagship on the card
+        model = flagship(vocab, torch.bfloat16, dev, seed + 1)
+        real_load, load_s = torch.load, []
+
+        def timed_load(*a, **kw):
+            t = time.perf_counter()
+            blob = real_load(*a, **kw)
+            load_s.append(time.perf_counter() - t)
+            return blob
+
+        torch.load = timed_load
+        try:
+            t0 = time.perf_counter()
+            _, report = torch_import.load_finetune_checkpoint(path, model)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        finally:
+            torch.load = real_load
+    out.update(load_s=load_s[0], import_s=total_s - load_s[0], report=report)
+    mapped = {k: evoke_to_port_key(k) for k in sd}
+    n_mapped = sum(m is not None for m in mapped.values())
+    target = model.state_dict()
+    want = {"loaded": n_mapped, "mismatched": IMPORT_MISMATCHED, "missing": IMPORT_MISSING}
+    if report != want or n_mapped != len(target):
+        raise AssertionError(f"phase 12 import report {report}, want {want} and every one of "
+                             f"the model's {len(target)} tensors")
+    t0 = time.perf_counter()
+    differ = torch.zeros((), dtype=torch.int64, device=dev)
+    elements = 0
+    for k, m in mapped.items():
+        if m is None:
+            continue
+        src = sd[k].to(dev)
+        src = src[..., 0] if m[1] else src
+        dst = target[m[0]]
+        differ += bits_differ(dst, src.to(torch.float32).to(dst.dtype))
+        elements += dst.numel()
+    differ = int(differ)
+    out["compare_s"] = time.perf_counter() - t0
+    log(f"phase 12 import [{smi}]: torch.load {out['load_s']:.2f}s, import into the card's "
+        f"bf16 flagship {out['import_s']:.2f}s; report {report}; {n_mapped} tensors "
+        f"({elements} elements) compared bit for bit on the card after the cast: {differ} "
+        f"differ ({out['compare_s']:.2f}s)")
+    if differ:
+        raise AssertionError(f"phase 12: {differ} imported elements differ from the checkpoint")
+
+    # (c) serve one batch of 64 studies
+    batch = example_batch(rng, 64, 64, 224, 100, vocab)
+    batch["_image_ids"] = [f"p12_s{j}" for j in range(64)]
+    masked_cross_view_attention.launches = 0
+    served, _, _, server = serve_one_batch(model, tok, cfg, batch, dev, "phase 12")
+    n_k3 = masked_cross_view_attention.launches
+    out.update(served, launches_fusion=n_k3)
+    log(f"phase 12 serve [{smi}]: imported flagship, bf16, beam 3, 3 x 64 studies captured: "
+        f"reports_per_s={served['reports_per_s']:.1f} p50={served['latency_p50_s']:.3f}s "
+        f"peak={served['peak_mem_gib']:.2f}GiB capture={served['capture_s']:.2f}s "
+        f"K1={served['launches_lineage']} K2={served['launches_fused']} K3={n_k3} a batch")
+    if (served["launches_lineage"], served["launches_fused"], n_k3) != (300, 100, 0):
+        raise AssertionError(f"phase 12 launches K1 {served['launches_lineage']}, K2 "
+                             f"{served['launches_fused']}, K3 {n_k3}: want 300, 100, 0")
+
+    # (d) the trace digest around the same batch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        t0 = time.perf_counter()
+        capture_trace(lambda: server.serve([batch], with_indication=True), tdir)
+        digest = summarize_trace(tdir)
+        out["trace_s"] = time.perf_counter() - t0
+    loop_names = [r["name"] for r in digest["loop_ops"]]
+    k1_ops = [r for r in digest["loop_ops"] if "lineage_kernel" in r["name"]]
+    log(f"phase 12 digest [{smi}] ({out['trace_s']:.1f}s with the export):\n"
+        + format_summary(digest, top=8))
+    if not k1_ops:
+        raise AssertionError(f"phase 12 digest: no lineage_kernel among {len(loop_names)} "
+                             f"loop ops {loop_names[:10]}")
+    out["digest"] = dict(loop_total_us=digest["loop_total_us"],
+                         oneshot_total_us=digest["oneshot_total_us"],
+                         lineage_kernel=[dict(name=r["name"], count=r["count"],
+                                              total_us=r["total_us"]) for r in k1_ops])
+    del server, model, target
+    gc_cuda()
+
+    # (c) float32: the same tensors, card against the CPU, 2 studies
+    model32 = flagship(vocab, torch.float32, dev, seed + 1)
+    _, report32 = torch_import.import_finetune_checkpoint(sd, model32)
+    if report32 != want:
+        raise AssertionError(f"phase 12 float32 import report {report32}")
+    small = example_batch(rng, 2, 2, 224, 100, vocab)
+    seqs = {}
+    t0 = time.perf_counter()
+    for where, m in (("card", model32), ("cpu", copy.deepcopy(model32).cpu())):
+        d = dev if where == "card" else torch.device("cpu")
+        gen = make_generate_step(m, tok, cfg, 100, with_indication=True, serving=True, device=d)
+        seqs[where] = gen({k: torch.as_tensor(v).to(d) for k, v in small.items()}).cpu()
+        del gen, m
+    out["float32_s"] = time.perf_counter() - t0
+    same = torch.equal(seqs["card"], seqs["cpu"])
+    out["float32_best_beams_equal"] = same
+    log(f"phase 12 float32 [{smi}]: best beams of 2 studies card vs CPU identical {same} "
+        f"({seqs['card'].unique().numel()} distinct tokens, {out['float32_s']:.1f}s)")
+    if not same or seqs["card"].unique().numel() <= 3:
+        raise AssertionError(f"phase 12: float32 best beams card vs CPU differ, or are "
+                             f"trivial: {seqs}")
+    del model32, sd
+    gc_cuda()
+    return out
+
+
 def gc_cuda():
     import gc
 
@@ -2645,6 +2854,8 @@ def main():
         t0 = time.perf_counter()
         heat = heatmaps_cli(root, *data, smi)
         log(f"phase 11 (d) heatmaps {time.perf_counter() - t0:.1f}s")
+        # phase 12 (d)'s native check runs here, over phase 7's dataset
+        native = native_tokenizer_check(data[0], data[1], smi)
 
     # ---- phase 8: the continuous engine against the batch engine, forced lengths ----
     t0 = time.perf_counter()
@@ -2687,6 +2898,12 @@ def main():
     p11_k2.update({"vit_b32": p11["vit_b32"]["launches_fused"]},
                   **{k: r["launches_fused"] for k, r in p11["modes"].items()})
 
+    # ---- phase 12: an EVOKE checkpoint imported and served ----
+    t0 = time.perf_counter()
+    p12 = imported_checkpoint(vocab, tok, cfg, dev, args.seed, smi, rng)
+    p12["native"] = native
+    log(f"phase 12 {time.perf_counter() - t0:.1f}s")
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -2695,15 +2912,15 @@ def main():
         dict(name="lineage_attention", route="cuda",
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
              replaces="evoke_tpu/ops/lineage_attention.py:213", launches=n_k1, **main1,
-             launches_phase11=p11_k1),
+             launches_phase11=p11_k1, launches_phase12=p12["launches_lineage"]),
         dict(name="fused_logit_topk", route="cuda",
              source="evoke_tpu_torch/csrc/fused_logit_topk.cu",
              replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2,
-             launches_phase11=p11_k2),
+             launches_phase11=p11_k2, launches_phase12=p12["launches_fused"]),
         dict(name="masked_cross_view_attention", route="cuda",
              source="evoke_tpu_torch/csrc/fusion_attention.cu",
              replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3,
-             launches_phase11={}),
+             launches_phase11={}, launches_phase12=p12["launches_fusion"]),
     ]}
     if args.out:
         detail = {
@@ -2729,7 +2946,7 @@ def main():
             "pretrain": {"train_step": pretrain_full, "card_vs_cpu": pretrain_check,
                          "losses_card_vs_cpu": losses_check, "retrieval_encode": encode,
                          "retrieval_search": search, "cli": stage1},
-            "phase11": p11, "kernels": kernels["kernels"], "profile": profile,
+            "phase11": p11, "phase12": p12, "kernels": kernels["kernels"], "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }
         with open(args.out, "w") as f:

@@ -1,7 +1,7 @@
 """Host-side adapters for heavy external CE metrics (off the training hot path):
-the port's own copy of ``evoke_tpu/evals/adapters.py`` without
-``radgraph_serialize`` (a factual-serialization hook no metric path calls;
-ROADMAP A14).
+the port's own copy of ``evoke_tpu/evals/adapters.py``, with
+``radgraph_serialize``, the factual-serialization NER hook of
+``tools/factual_serialization.py``.
 
 Capability parity (SURVEY §2.6/§2.12): F1-RadGraph (AllenNLP/DyGIE), GREEN
 (LLM judge), RadEntity NLI/exact (stanza + BERT-NLI), BERTScore. None of these
@@ -88,6 +88,33 @@ class F1RadGraphAdapter:
                 self.cache.put(self.cache.key(hyps[i], refs[i]), float(rw))
         vals = [float(r) for r in rewards]
         return sum(vals) / max(len(vals), 1), vals
+
+
+def radgraph_serialize(reports: List[str], model_path: Optional[str] = None
+                       ) -> List[List[str]]:
+    """RadGraph NER -> ORDERED core_findings sentences (factual serialization
+    NER hook): entity spans are grouped per sentence with no/maybe modifiers via
+    tools.factual_serialization.entities_to_core_findings — the reference's
+    entity-graph traversal (factual_serialization.py:197-286), not a bag of
+    entity tokens."""
+    try:
+        from radgraph import RadGraph  # type: ignore
+    except ImportError as e:
+        raise MetricUnavailable("radgraph package not installed") from e
+    from evoke_tpu_torch.tools.factual_serialization import entities_to_core_findings
+
+    rg = RadGraph(model_path=model_path) if model_path else RadGraph()
+    annotations = rg(reports)
+    out: List[List[str]] = []
+    for i, report in enumerate(reports):
+        ann = annotations.get(str(i), {}) if isinstance(annotations, dict) else {}
+        tokens = (ann.get("text") or report).split()
+        spans = sorted(
+            (int(e["start_ix"]), int(e["end_ix"]), str(e.get("label", "")))
+            for e in ann.get("entities", {}).values()
+            if "start_ix" in e and "end_ix" in e)
+        out.append(entities_to_core_findings(tokens, spans))
+    return out
 
 
 class GreenAdapter:

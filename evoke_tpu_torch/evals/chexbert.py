@@ -11,8 +11,8 @@ every batch is queued before the labels are copied back.
 
 Weights: ``chexbert.pth`` read with ``torch.load`` ('state_dict' /
 'model_state_dict' wrappers, 'module.'-prefixed ``bert.*`` HF BertModel keys
-and ``linear_heads.*``), mapped straight onto the port's module names
-(``Dense.weight`` is ``[out, in]`` as in torch, so nothing is transposed).
+and ``linear_heads.*``); the encoder goes through the port's one BERT key
+map, ``models.torch_import.import_bert_encoder``.
 
 ``classification_report`` and ``accuracy_score`` are numpy versions of
 sklearn's for multilabel 0/1 matrices (the port does not depend on sklearn).
@@ -31,6 +31,7 @@ from evoke_tpu_torch.core.device import resolve_device
 from evoke_tpu_torch.data.tokenizer import WordTokenizer
 from evoke_tpu_torch.models.layers import Dense
 from evoke_tpu_torch.models.text_encoder import TextEncoder
+from evoke_tpu_torch.models.torch_import import import_bert_encoder
 from evoke_tpu_torch.params import init_params_
 
 CONDITIONS = [
@@ -62,26 +63,6 @@ class ChexbertLabeler(nn.Module):
         return [head(cls) for head in self.heads]
 
 
-def _bert_key_map(num_layers: int) -> Dict[str, str]:
-    """HF BertModel state-dict key -> the port's TextEncoder key."""
-    out = {"embeddings.LayerNorm.weight": "embeddings.LayerNorm_0.weight",
-           "embeddings.LayerNorm.bias": "embeddings.LayerNorm_0.bias"}
-    for name in ("word", "position", "token_type"):
-        out[f"embeddings.{name}_embeddings.weight"] = f"embeddings.{name}_embeddings.weight"
-    pairs = (("attention.self.query", "attention.wq"), ("attention.self.key", "attention.wk"),
-             ("attention.self.value", "attention.wv"),
-             ("attention.output.dense", "attention.out.Dense_0"),
-             ("attention.output.LayerNorm", "attention.out.LayerNorm_0"),
-             ("intermediate.dense", "ffn.Dense_0"),
-             ("output.dense", "ffn.BertSelfOutput_0.Dense_0"),
-             ("output.LayerNorm", "ffn.BertSelfOutput_0.LayerNorm_0"))
-    for i in range(num_layers):
-        for src, dst in pairs:
-            for p in ("weight", "bias"):
-                out[f"encoder.layer.{i}.{src}.{p}"] = f"layer_{i}.{dst}.{p}"
-    return out
-
-
 def load_chexbert_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """``chexbert.pth`` -> a flat state dict without the 'module.' prefix."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
@@ -95,23 +76,14 @@ def load_chexbert_state_dict(path: str) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def load_chexbert_weights(model: ChexbertLabeler, state_dict: Mapping[str, torch.Tensor]
                           ) -> Dict[str, int]:
-    """Copy ``bert.*`` and ``linear_heads.*`` into ``model``. Returns the JAX
-    importer's report: ``loaded`` (encoder tensors copied), ``mismatched``
-    (encoder tensors skipped for their shape, e.g. another vocab) and
-    ``missing`` (encoder tensors of the model the checkpoint lacks). Layers
+    """Copy ``bert.*`` (through ``models.torch_import.import_bert_encoder``)
+    and ``linear_heads.*`` into ``model``. Returns the importer's report:
+    ``loaded`` (encoder tensors copied), ``mismatched`` (encoder tensors
+    skipped for their shape, e.g. another vocab) and ``missing``. Layers
     beyond the model's depth, ``pooler.*`` and ``embeddings.position_ids``
     are ignored; a head of another shape raises."""
-    report = {"loaded": 0, "mismatched": 0, "missing": 0}
-    target = model.bert.state_dict()
-    for src, dst in _bert_key_map(len(model.bert.layers)).items():
-        value = state_dict.get("bert." + src)
-        if value is None:
-            report["missing"] += 1
-        elif tuple(value.shape) != tuple(target[dst].shape):
-            report["mismatched"] += 1
-        else:
-            target[dst].copy_(value)
-            report["loaded"] += 1
+    bert_sd = {k[len("bert."):]: v for k, v in state_dict.items() if k.startswith("bert.")}
+    _, report = import_bert_encoder(bert_sd, model.bert)
     for i, head in enumerate(model.heads):
         w = state_dict.get(f"linear_heads.{i}.weight")
         if w is not None:
