@@ -192,9 +192,32 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    Python ``WordTokenizer`` on every report) and ``core.profiling``'s
    ``capture_trace`` around the served batch gives a digest whose loop ops
    hold ``lineage_kernel``;
-13. a JSON line of every ported kernel (launches: phase 4's captured run;
+13. data parallelism (``core/mesh``, ``parallel/collectives``): (a) right
+   after phase 6, in a real NCCL process group of size 1 made in this
+   process, ``cli serve --decode.serve_dp -1`` on both engines over phase
+   6's dataset and configuration: ``serving mesh: dp=1``, the CSV equal to
+   phase 6's row for row, K1 and K2 launched as often as in phase 6,
+   reports/s and p50 beside phase 6's; (d) in the same group,
+   ``evoke_tpu_torch.dryrun``'s 5 stages at world size 1 (train step,
+   beam-3 decode, checkpoint save / restore / step, the wide fusion, the
+   continuous engine with K1 and K2 launched); then, after phase 12, two
+   ranks spawned on the one card over gloo on CUDA tensors (NCCL refuses two
+   ranks on one device): (b) the float32 flagship decodes 2 studies a rank
+   through ``make_generate_step(mesh=)`` and the gathered best beams must be
+   the one-device serving path's; the bf16 flagship serves one 64-study
+   batch, 32 a rank, captured: each rank's K1 (3 a step), K2 (1 a step at N
+   96), reports/s (information: the ranks share the card) and peak GiB;
+   (c) the TINY float32 finetune and pretrain steps (phase 9 (b) / 10 (b)'s
+   models, dropout on) against the one-rank step on the global batch (loss
+   within 1e-5 relative, parameters within ``DP_PARAM_TOL``, each update
+   within 1e-3 of the first RAdam step's size of the one-rank update (2e-2
+   in L2 norm in the ResNet), most parameters moved, bit-identical across
+   the ranks by checksum), then the full-width bf16 finetune step at
+   16 + 16 a rank: step ms, peak GiB a rank, K1 = K2 = K3 = 0;
+14. a JSON line of every ported kernel (launches: phase 4's captured run;
    ``launches_phase11``: each phase 11 path's count; ``launches_phase12``:
-   phase 12's served batch), then the result line.
+   phase 12's served batch; ``launches_phase13``: each phase 13 path's), then
+   the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -655,9 +678,10 @@ def write_cli_tokenizer(root, ann, size=30000):
     return tok_dir
 
 
-def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
+def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch", serve_dp=0):
     """The serve CLI in-process at full width over the synthetic dataset:
-    every CLI default but bf16 (and ``--decode.engine``). Returns the phase's
+    every CLI default but bf16 (and ``--decode.engine``; ``serve_dp``:
+    ``--decode.serve_dp``, into a version of its own). Returns the phase's
     numbers."""
     import contextlib
     import csv
@@ -685,6 +709,7 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
     lineage_attention.launches = 0
     fused_logit_topk.launches = 0
     masked_cross_view_attention.launches = 0
+    version = f"{engine}_dp" if serve_dp else engine
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -692,7 +717,8 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
                            "--data.tokenizer_dir", tok_dir,
                            "--trainer.result_dir", os.path.join(root, "results"),
                            "--model.dtype", "bfloat16", "--decode.engine", engine,
-                           "--trainer.version", engine])
+                           "--trainer.version", version,
+                           "--decode.serve_dp", str(serve_dp)])
         torch.cuda.synchronize()
     finally:
         cls.serve = serve_fn
@@ -705,7 +731,7 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
     if rc != 0:
         raise AssertionError(f"cli serve returned {rc}")
     summary = json.loads(printed[-1])
-    csv_path = os.path.join(root, "results", "mimic_cxr", "serve", engine,
+    csv_path = os.path.join(root, "results", "mimic_cxr", "serve", version,
                             "serve_prediction.csv")
     with open(csv_path, newline="") as f:
         rows = list(csv.reader(f))
@@ -726,7 +752,7 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
                capture_s=capture_s, reports_per_s_without_capture=summary["reports"] / served_s,
                serve_wall_s=summary["wall_s"], peak_mem_gib=peak_gib,
                cli_wall_s=wall, launches_lineage=n_k1, launches_fused=n_k2,
-               launches_fusion_attention=n_k3)
+               launches_fusion_attention=n_k3, csv_rows=rows, printed=printed)
     if engine == "continuous":
         # the batch engine's wall covers all the work it issued; count the
         # speculative dispatches the card runs after the last read too
@@ -746,7 +772,8 @@ def serve_cli(root, ann, tok_dir, has_ind, no_ind, engine="batch"):
                    batches=[s["batches"] for s in stats])
         latency = f"batch_latency_p50_s={[round(x, 4) for x in out['batch_latency_p50_s']]}"
         what = f"{len(stats)} loops"
-    log(f"cli serve --decode.engine {engine}: {summary['reports']} reports, reports_per_s="
+    log(f"cli serve --decode.engine {engine}{f' --decode.serve_dp {serve_dp}' if serve_dp else ''}"
+        f": {summary['reports']} reports, reports_per_s="
         f"{summary['reports_per_s']} with the capture of the decode steps "
         f"({capture_s:.2f}s, {what}), "
         f"{out['reports_per_s_without_capture']:.3f} without (serve wall "
@@ -2636,6 +2663,306 @@ def imported_checkpoint(vocab, tok, cfg, dev, seed, smi, rng):
     return out
 
 
+# ---- phase 13: data parallelism over torch.distributed ----
+
+# two ranks share the one card: NCCL refuses that, so they run gloo on CUDA
+# tensors, chosen here explicitly (the port never falls back to gloo)
+DP_DEVICES = ("cuda:0", "cuda:0")
+DP_PARAM_TOL = 6.5e-5      # phase 9 (b)'s card-vs-CPU bound, on parameters after one step
+
+
+def dp_one_rank_group():
+    """A real NCCL process group of size 1 in this process (the CLI's
+    ``--decode.serve_dp`` joins it, as it joins torchrun's)."""
+    from evoke_tpu_torch.core.mesh import init_distributed, rendezvous_file
+
+    init_distributed("nccl", rendezvous_file(), 1, 0, device="cuda")
+
+
+def dp_serve_cli(root, data, single, smi):
+    """Phase 13 (a): ``cli serve --decode.serve_dp -1`` (one rank on the one
+    card, NCCL) on both engines, in the 1-rank group: the CSV must be
+    phase 6's row for row and the K1 / K2 counts phase 6's."""
+    out = {}
+    for engine, base in single.items():
+        res = serve_cli(root, *data, engine=engine, serve_dp=-1)
+        if "serving mesh: dp=1" not in res["printed"]:
+            raise AssertionError(f"phase 13 (a) {engine}: no 'serving mesh: dp=1' line")
+        if res["csv_rows"] != base["csv_rows"]:
+            raise AssertionError(f"phase 13 (a) {engine}: serve_prediction.csv differs from "
+                                 "the one-device CLI's")
+        counts = (res["launches_lineage"], res["launches_fused"])
+        if counts != (base["launches_lineage"], base["launches_fused"]):
+            raise AssertionError(f"phase 13 (a) {engine}: launches {counts}, one device "
+                                 f"{(base['launches_lineage'], base['launches_fused'])}")
+        for r in (res, base):
+            r.pop("csv_rows")
+            r.pop("printed")
+        log(f"phase 13 (a) cli serve --decode.serve_dp -1 --decode.engine {engine} [{smi}]: "
+            f"serving mesh: dp=1 (NCCL, 1 rank), CSV == one device's row for row; "
+            f"reports_per_s={res['reports_per_s']} (one device {base['reports_per_s']}), "
+            f"without the capture {res['reports_per_s_without_capture']:.3f} (one device "
+            f"{base['reports_per_s_without_capture']:.3f}), p50 "
+            f"{res.get('batch_latency_p50_s', res.get('study_p50_ms'))} (one device "
+            f"{base.get('batch_latency_p50_s', base.get('study_p50_ms'))}), launches "
+            f"lineage={counts[0]} fused={counts[1]} (== one device's)")
+        out[engine] = res
+    return out
+
+
+def dp_dryrun(smi):
+    """Phase 13 (d): ``evoke_tpu_torch.dryrun``'s 5 stages on the card at
+    world size 1, in the 1-rank NCCL group (each stage prints its line)."""
+    from evoke_tpu_torch import dryrun
+    from evoke_tpu_torch.core.mesh import MeshSpec, create_mesh
+
+    t0 = time.perf_counter()
+    zero_launches()
+    dryrun.run(create_mesh(MeshSpec(dp=1), device="cuda"))
+    n_k1, n_k2 = read_launches()
+    log(f"phase 13 (d) dryrun 1 [{smi}]: 5 stages in {time.perf_counter() - t0:.1f}s, "
+        f"launches lineage={n_k1} fused={n_k2}")
+    return dict(seconds=time.perf_counter() - t0, launches_lineage=n_k1, launches_fused=n_k2)
+
+
+def _rank_result(mesh, out_dir, name, result):
+    """Every rank's ``result`` -> ``out_dir/name.json`` (rank 0 writes)."""
+    import os
+
+    from evoke_tpu_torch.parallel.collectives import gather_objects
+
+    parts = gather_objects(result, mesh)
+    if mesh.rank == 0:
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(parts, f)
+
+
+def dp_serve_rank(mesh, out_dir, seed):
+    """Phase 13 (b), one of two ranks on the one card: the float32 flagship
+    decodes 2 studies a rank through ``make_generate_step(mesh=)`` (the
+    gathered best beams must be the one-device serving path's, which rank 0
+    decodes too); then the bf16 flagship serves one 64-study batch through
+    ``ReportServer(mesh=)``, 32 studies a rank, captured, after a warm-up."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.core.mesh import shard_batch
+    from evoke_tpu_torch.decode.forcing import synthetic_tokenizer
+    from evoke_tpu_torch.parallel.collectives import all_gather_batch
+    from evoke_tpu_torch.serve import ReportServer
+    from evoke_tpu_torch.train.steps import make_generate_step
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok = synthetic_tokenizer(30000)
+    vocab = tok.get_vocab_size()
+    cfg = DecodeConfig(beam_size=3, suppress_unk=True)
+    rng = np.random.default_rng(seed + 13)
+    small = example_batch(rng, 2 * mesh.dp, 2 * mesh.dp, 224, 100, vocab)
+    model32 = flagship(vocab, torch.float32, dev, seed)
+    gen = make_generate_step(model32, tok, cfg, 100, with_indication=True, serving=True,
+                             device=dev, mesh=mesh)
+    seqs = all_gather_batch(gen(shard_batch(small, mesh)), mesh).cpu()
+    same = None
+    if mesh.rank == 0:
+        one = make_generate_step(model32, tok, cfg, 100, with_indication=True, serving=True,
+                                 device=dev)
+        want = one({k: torch.as_tensor(v).to(dev) for k, v in small.items()}).cpu()
+        same = bool(torch.equal(seqs, want))
+        if not same:
+            raise AssertionError(f"phase 13 (b): dp float32 best beams differ from one "
+                                 f"device's in {int((seqs != want).sum())} tokens")
+        del one
+    del gen, model32
+    gc_cuda()
+    model = flagship(vocab, torch.bfloat16, dev, seed)
+    batch = example_batch(rng, 64, 64, 224, 100, vocab)
+    batch["_image_ids"] = [f"dp_s{j}" for j in range(64)]
+    server = ReportServer(model, tok, cfg, max_seq_len=100, depth=2, mesh=mesh)
+    server.serve([batch], with_indication=True)
+    capture_s = server.stats["capture_s"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with StepCount() as steps:
+        records = server.serve([batch], with_indication=True)
+        torch.cuda.synchronize()
+    n_k1, n_k2 = read_launches()
+    (b, *_), = [key for key in server._gen[True].loops]
+    if len(records) != 64 or not all(r["report"].strip() for r in records):
+        raise AssertionError(f"phase 13 (b) rank {mesh.rank}: {len(records)} records")
+    if n_k1 != 3 * steps.steps or n_k2 != steps.steps or not steps.steps:
+        raise AssertionError(f"phase 13 (b) rank {mesh.rank}: K1 {n_k1}, K2 {n_k2} over "
+                             f"{steps.steps} decode steps (want 3 and 1 a step)")
+    _rank_result(mesh, out_dir, "dp_serve", dict(
+        rank=mesh.rank, float32_best_beams_equal=same, studies=b, k2_rows=b * cfg.beam_size,
+        steps=steps.steps, launches_lineage=n_k1, launches_fused=n_k2,
+        reports_per_s=server.stats["reports_per_s"],
+        latency_p50_s=server.stats["batch_latency_p50_s"], capture_s=capture_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+
+
+def dp_train_rank(mesh, out_dir, seed):
+    """Phase 13 (c), one of two ranks on the one card: the TINY float32
+    finetune and pretrain steps (phase 9 (b) / 10 (b)'s models; dropout on,
+    the config's learning rates) on the rank's rows against the one-rank step
+    on the global batch, parameters bit-identical across the ranks (a
+    checksum); then the full-width bf16 finetune step at 16 + 16 a rank."""
+    import copy
+    import hashlib
+
+    from evoke_tpu_torch.core.config import OptimConfig
+    from evoke_tpu_torch.core.mesh import shard_batch
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.parallel.collectives import gather_objects
+    from evoke_tpu_torch.params import init_params_
+    from evoke_tpu_torch.train.optim import build_optimizer, param_label
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    o = OptimConfig()
+    lr = dict(pt_lr=o.pt_lr, ft_lr=o.ft_lr, weight_decay=o.weight_decay)
+    result = dict(rank=mesh.rank)
+
+    def one_step(model, batch, task, step_mesh):
+        opt = build_optimizer("RAdam", task, model, **lr)
+        step = make_train_step(model, opt, seed, with_indication=task == "finetune",
+                               task=task, mesh=step_mesh)
+        model.train()
+        out = step(TrainState(model, opt), batch)
+        return float(out["all_loss"]), {n: p.detach() for n, p in model.named_parameters()}
+
+    def update_err(task, before, got, want):
+        """The worst ratio of the dp update's distance from the one-rank
+        update to its bound (tests/test_torch_port_parallel.py's): RAdam's
+        first step moves a weight by lr times its gradient clipped to +-0.1,
+        so 1e-3 of that outside the ResNet, 2e-2 in L2 norm relative inside
+        it (its batch-statistics BatchNorms amplify the sums' rounding);
+        and how many parameters the one-rank step moved."""
+        worst, moved = 0.0, 0
+        for n, w in want.items():
+            d_want, d_got = w - before[n], got[n] - before[n]
+            moved += bool(d_want.abs().max() > 0)
+            err = d_got - d_want
+            ulp = 2 * torch.finfo(torch.float32).eps * w.abs()   # the step's own rounding
+            if n.startswith("visual_extractor"):
+                ratio = err.norm() / (2e-2 * d_want.norm() + ulp.norm() + 1e-30)
+            else:
+                lr_n = lr["ft_lr" if task == "finetune" and param_label(n) == "ft" else "pt_lr"]
+                ratio = (err.abs() / (1e-3 * 0.1 * lr_n + ulp)).max()
+            worst = max(worst, float(ratio))
+        return worst, moved
+
+    rng = np.random.default_rng(seed + 11)
+    bt = example_batch(rng, 2, 2, 64, 16, 50)
+    bt["mask"][1, 12:] = 0
+    for task in ("finetune", "pretrain"):
+        model = tiny_train_model(seed=seed, task=task).to(dev)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        want_loss, want = one_step(copy.deepcopy(model), {
+            k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, task, None)
+        loss, got = one_step(model, shard_batch(bt, mesh), task, mesh)
+        loss_err = abs(loss - want_loss) / abs(want_loss)
+        param_err = max((got[n] - want[n]).abs().max().item() for n in want)
+        upd_ratio, moved = update_err(task, before, got, want)
+        digest = hashlib.sha256(b"".join(got[n].cpu().numpy().tobytes()
+                                         for n in sorted(got))).hexdigest()
+        digests = gather_objects(digest, mesh)
+        if (loss_err > 1e-5 or param_err > DP_PARAM_TOL or upd_ratio > 1.0
+                or moved <= len(want) // 2 or len(set(digests)) != 1):
+            raise AssertionError(f"phase 13 (c) {task} rank {mesh.rank}: loss {loss} vs "
+                                 f"{want_loss} (rel {loss_err:.2e}), parameters {param_err:.2e}"
+                                 f", update error {upd_ratio:.2f} of its bound, {moved} of "
+                                 f"{len(want)} parameters moved, checksums {digests}")
+        result[task] = dict(loss=loss, loss_one_rank=want_loss, loss_rel_err=loss_err,
+                            param_max_abs_err=param_err, update_err_of_bound=upd_ratio,
+                            moved=moved, n_params=len(want), checksum=digest[:16])
+        del model
+    gc_cuda()
+    vocab, n_anchor, image_size, seq = 30001, 32, 224, 100
+    with torch.device(dev):
+        model = FinetuneModel(vocab_size=vocab, max_seq_len=seq, dtype=torch.bfloat16)
+    init_params_(model, seed)
+    opt = build_optimizer(o.optim, "finetune", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+                          weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, seed, with_indication=True, mesh=mesh)
+    rng = np.random.default_rng(seed + 5)
+    full = example_batch(rng, n_anchor, n_anchor, image_size, seq, vocab)
+    full["images"] = rng.integers(0, 256, size=full["images"].shape, dtype=np.uint8)
+    full["mask"][:, seq * 3 // 5:] = 0
+    full["mask"][::2, seq * 2 // 5:] = 0
+    batch = shard_batch(full, mesh)
+    model.train()
+    zero_launches()
+    masked_cross_view_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(8):
+        t1 = time.perf_counter()
+        losses.append(float(step(state, batch)["lm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    kernels = read_launches() + (masked_cross_view_attention.launches,)
+    if any(kernels) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 13 (c) full width rank {mesh.rank}: K1/K2/K3 {kernels}, "
+                             f"losses {losses}")
+    result["full_width"] = dict(
+        rows=int(batch["ids"].shape[0]), step_ms=statistics.median(times[3:]) * 1e3,
+        step_ms_all=[t * 1e3 for t in times], peak_mem_gib=torch.cuda.max_memory_allocated()
+        / 2 ** 30, losses=losses, launches_k1_k2_k3=kernels)
+    _rank_result(mesh, out_dir, "dp_train", result)
+
+
+def dp_two_ranks(seed, smi):
+    """Phase 13 (b) and (c): two ranks spawned on the one card (gloo on CUDA
+    tensors); each phase's per-rank numbers are printed here."""
+    import os
+
+    from evoke_tpu_torch.core.mesh import spawn
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        for name, body in (("dp_serve", dp_serve_rank), ("dp_train", dp_train_rank)):
+            gc_cuda()
+            t0 = time.perf_counter()
+            spawn(body, 2, (d, seed), devices=DP_DEVICES, backend="gloo",
+                  init_method="file://" + os.path.join(d, f"{name}.rendezvous"),
+                  timeout_s=300)
+            with open(os.path.join(d, f"{name}.json")) as f:
+                out[name] = json.load(f)
+            out[name + "_s"] = time.perf_counter() - t0
+    for r in out["dp_serve"]:
+        log(f"phase 13 (b) dp=2 on one card (gloo), rank {r['rank']} [{smi}]: bf16 flagship "
+            f"{r['studies']} of 64 studies, K2 rows {r['k2_rows']}, {r['steps']} decode steps, "
+            f"launches lineage={r['launches_lineage']} fused={r['launches_fused']}, "
+            f"reports_per_s={r['reports_per_s']:.2f} (all 64 reports over this rank's wall; "
+            f"two ranks share the card: information, not a speed), p50 "
+            f"{r['latency_p50_s']:.3f}s, capture {r['capture_s']:.2f}s, peak_mem_gib="
+            f"{r['peak_mem_gib']:.2f}" + (f"; float32 best beams of 4 studies == one device: "
+                                         f"{r['float32_best_beams_equal']}"
+                                         if r["rank"] == 0 else ""))
+    for r in out["dp_train"]:
+        fw = r["full_width"]
+        log(f"phase 13 (c) dp=2 train step on one card (gloo), rank {r['rank']} [{smi}]: "
+            + "; ".join(f"TINY {t} loss {r[t]['loss']:.6f} vs one rank "
+                        f"{r[t]['loss_one_rank']:.6f} (rel {r[t]['loss_rel_err']:.1e}), "
+                        f"parameters {r[t]['param_max_abs_err']:.1e} (tol {DP_PARAM_TOL}), "
+                        f"update error {r[t]['update_err_of_bound']:.3f} of its bound, "
+                        f"{r[t]['moved']} of {r[t]['n_params']} parameters moved, "
+                        f"checksum {r[t]['checksum']}" for t in ("finetune", "pretrain"))
+            + f"; full width bf16 {fw['rows']} + {fw['rows']} a rank: step_ms="
+            f"{fw['step_ms']:.1f} (median of 5 after 3 warm-up), peak_mem_gib="
+            f"{fw['peak_mem_gib']:.2f}, K1/K2/K3 {fw['launches_k1_k2_k3']}")
+    sums = [[r[t]["checksum"] for r in out["dp_train"]] for t in ("finetune", "pretrain")]
+    if any(len(set(c)) != 1 for c in sums):
+        raise AssertionError(f"phase 13 (c): parameter checksums differ across ranks: {sums}")
+    return out
+
+
 def gc_cuda():
     import gc
 
@@ -2847,6 +3174,18 @@ def main():
         data = write_cli_dataset(root, args.seed)
         cli_res = serve_cli(root, *data)
         cli_cont = serve_cli(root, *data, engine="continuous")
+        # phase 13 (a) and (d) run here, in a 1-rank NCCL group over phase 6's dataset
+        t0 = time.perf_counter()
+        dp_one_rank_group()
+        try:
+            p13 = {"serve_dp_cli": dp_serve_cli(root, data, {"batch": cli_res,
+                                                             "continuous": cli_cont}, smi),
+                   "dryrun": dp_dryrun(smi)}
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        log(f"phase 13 (a), (d) {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         test_res = test_cli(root, *data, smi, args.seed)
         log(f"test cli phase {time.perf_counter() - t0:.1f}s")
@@ -2904,6 +3243,20 @@ def main():
     p12["native"] = native
     log(f"phase 12 {time.perf_counter() - t0:.1f}s")
 
+    # ---- phase 13 (b), (c): two ranks on the one card ----
+    t0 = time.perf_counter()
+    p13.update(dp_two_ranks(args.seed, smi))
+    log(f"phase 13 (b), (c) {time.perf_counter() - t0:.1f}s")
+    p13_counts = {}
+    for i, key in enumerate(("launches_lineage", "launches_fused", "launches_fusion_attention")):
+        counts = {f"cli serve_dp -1 {engine}": r.get(key, 0)
+                  for engine, r in p13["serve_dp_cli"].items()}
+        counts.update({f"dp=2 serve rank {r['rank']}": r.get(key, 0) for r in p13["dp_serve"]})
+        counts.update({f"dp=2 train rank {r['rank']}": r["full_width"]["launches_k1_k2_k3"][i]
+                       for r in p13["dp_train"]})
+        counts["dryrun 1"] = p13["dryrun"].get(key, 0)
+        p13_counts[key] = counts
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -2912,15 +3265,18 @@ def main():
         dict(name="lineage_attention", route="cuda",
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
              replaces="evoke_tpu/ops/lineage_attention.py:213", launches=n_k1, **main1,
-             launches_phase11=p11_k1, launches_phase12=p12["launches_lineage"]),
+             launches_phase11=p11_k1, launches_phase12=p12["launches_lineage"],
+             launches_phase13=p13_counts["launches_lineage"]),
         dict(name="fused_logit_topk", route="cuda",
              source="evoke_tpu_torch/csrc/fused_logit_topk.cu",
              replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2,
-             launches_phase11=p11_k2, launches_phase12=p12["launches_fused"]),
+             launches_phase11=p11_k2, launches_phase12=p12["launches_fused"],
+             launches_phase13=p13_counts["launches_fused"]),
         dict(name="masked_cross_view_attention", route="cuda",
              source="evoke_tpu_torch/csrc/fusion_attention.cu",
              replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3,
-             launches_phase11={}, launches_phase12=p12["launches_fusion"]),
+             launches_phase11={}, launches_phase12=p12["launches_fusion"],
+             launches_phase13=p13_counts["launches_fusion_attention"]),
     ]}
     if args.out:
         detail = {
@@ -2946,7 +3302,8 @@ def main():
             "pretrain": {"train_step": pretrain_full, "card_vs_cpu": pretrain_check,
                          "losses_card_vs_cpu": losses_check, "retrieval_encode": encode,
                          "retrieval_search": search, "cli": stage1},
-            "phase11": p11, "phase12": p12, "kernels": kernels["kernels"], "profile": profile,
+            "phase11": p11, "phase12": p12, "phase13": p13, "kernels": kernels["kernels"],
+            "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }
         with open(args.out, "w") as f:

@@ -44,6 +44,13 @@ The tasks:
   ``serve_prediction.csv`` and a JSON throughput summary) with either engine:
   ``--decode.engine batch`` (the default: pipelined batches) or
   ``continuous`` (slots refilled mid-stream, ``decode/continuous.py``).
+  ``--decode.serve_dp N`` serves over a pure-dp mesh of N ranks (-1: every
+  visible card): under torchrun the process joins the existing group,
+  otherwise the command spawns N ranks itself (NCCL on ``cuda:{rank}``, or
+  gloo with ``--device cpu``). Each rank encodes and decodes its rows of
+  every batch (the continuous engine: its share of the slots); rank 0
+  prints ``serving mesh: dp=N``, writes ``serve_prediction.csv`` and the
+  summary. N above the visible cards raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -158,9 +165,37 @@ ENGINES = ("batch", "continuous")
 def _check_serve_config(cfg) -> None:
     if cfg.decode.engine not in ENGINES:
         raise ValueError(f"decode.engine={cfg.decode.engine!r}: one of {ENGINES}")
-    if cfg.decode.serve_dp:
-        raise NotImplementedError(f"decode.serve_dp={cfg.decode.serve_dp}: multi-GPU "
-                                  "serving is ROADMAP A13")
+    if int(cfg.decode.serve_dp) < -1:
+        raise ValueError(f"decode.serve_dp={cfg.decode.serve_dp}: 0 (one device), N > 0 "
+                         "ranks or -1 (every visible card)")
+
+
+def _serve_rank(mesh, argv: List[str]) -> None:
+    """One spawned rank of ``serve --decode.serve_dp N``: the group is up,
+    so ``main`` joins it."""
+    main(argv)
+
+
+def _serving_mesh(cfg, argv: List[str], device):
+    """``--decode.serve_dp``: -> this process's mesh (it is a rank: spawned,
+    or started by torchrun), or None once the ranks this call spawned have
+    served."""
+    import torch.distributed as dist
+
+    from evoke_tpu_torch.core.mesh import (MeshSpec, check_devices, create_mesh,
+                                           init_distributed, spawn, visible_devices)
+
+    n = visible_devices(device) if int(cfg.decode.serve_dp) < 0 else int(cfg.decode.serve_dp)
+    spec = MeshSpec(dp=n)
+    check_devices(spec, device)
+    if not dist.is_initialized() and "RANK" not in os.environ:
+        spawn(_serve_rank, n, (argv,), device=device.type)
+        return None
+    init_distributed(device=device)
+    mesh = create_mesh(spec, device=device.type)
+    if mesh.rank == 0:
+        print(f"serving mesh: dp={n}", flush=True)
+    return mesh
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -190,15 +225,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     if task == "serve":
         _check_serve_config(cfg)
     device = resolve_device(device)
+    mesh = None
+    if task == "serve" and cfg.decode.serve_dp:
+        mesh = _serving_mesh(cfg, argv, device)
+        if mesh is None:
+            return 0
+        device = mesh.device
+    main_rank = mesh is None or mesh.rank == 0
 
     from evoke_tpu_torch.data.datasets import load_annotation
     from evoke_tpu_torch.data.tokenizer import build_tokenizer
     from evoke_tpu_torch.params import init_params_
 
+    from evoke_tpu_torch.parallel.collectives import barrier, broadcast_
+
     ann = load_annotation(cfg.data.ann_path)
+    if not main_rank:
+        barrier(mesh)    # rank 0 writes the tokenizer file first
     tokenizer = build_tokenizer(cfg.data.tokenizer_dir, cfg.data.data_name,
                                 ann_path=cfg.data.ann_path, model=cfg.data.tokenizer_model,
                                 tokenizer_type=cfg.data.tokenizer_type)
+    if main_rank and mesh is not None:
+        barrier(mesh)
     cfg.vocab_size = tokenizer.get_vocab_size()
     model = build_model(cfg, cfg.vocab_size, device, cfg_task)
     init_params_(model, cfg.trainer.seed)
@@ -222,8 +270,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if cfg.trainer.load:
         from evoke_tpu_torch.core.checkpoint import partial_restore_from
 
-        print(f"loaded weights: {partial_restore_from(cfg.trainer.load, model)}")
-    return _serve(cfg, model, tokenizer, loaders, device)
+        report = partial_restore_from(cfg.trainer.load, model)
+        if main_rank:
+            print(f"loaded weights: {report}")
+    # every rank serves rank 0's weights
+    broadcast_(list(model.parameters()) + list(model.buffers()), mesh)
+    return _serve(cfg, model, tokenizer, loaders, device, mesh)
 
 
 def _finetune(cfg, model, tokenizer, ann, device) -> int:
@@ -354,10 +406,11 @@ def _retrieve(cfg, model, tokenizer, ann, device) -> int:
     return 0
 
 
-def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
+def _serve(cfg, model, tokenizer, test_loaders, device, mesh=None) -> int:
     """Streaming inference over the test split: pipelined beam decode by the
     batch or the continuous engine, predictions CSV and a throughput summary
-    (no metric scoring)."""
+    (no metric scoring). Under a dp ``mesh`` every rank serves its rows and
+    gets every record; rank 0 writes the CSV and prints the summary."""
     records: List[Dict] = []
     stats: List[Dict[str, float]] = []
     inc, no = test_loaders
@@ -370,7 +423,7 @@ def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
             beam_size=d.beam_size, seg_steps=d.seg_steps, dispatch_segs=d.dispatch_segs,
             pack_batches=d.pack_batches, suppress_unk=d.suppress_unk,
             length_penalty=d.length_penalty, beam_kv=d.beam_kv,
-            kv_cache_dtype=d.kv_cache_dtype, device=device)
+            kv_cache_dtype=d.kv_cache_dtype, device=device, mesh=mesh)
         for loader in (inc, no):
             if loader is None:
                 continue
@@ -381,12 +434,14 @@ def _serve(cfg, model, tokenizer, test_loaders, device) -> int:
         from evoke_tpu_torch.serve import ReportServer
 
         server = ReportServer(model, tokenizer, cfg.decode, max_seq_len=cfg.data.max_seq_len,
-                              device=device)
+                              device=device, mesh=mesh)
         for loader, with_ind in ((inc, True), (no, False)):
             if loader is None:
                 continue
             records.extend(server.serve(loader, with_indication=with_ind))
             stats.append(dict(server.stats))
+    if mesh is not None and mesh.rank != 0:
+        return 0
     os.makedirs(cfg.result_dir, exist_ok=True)
     out_path = os.path.join(cfg.result_dir, "serve_prediction.csv")
     with open(out_path, "w", newline="") as f:

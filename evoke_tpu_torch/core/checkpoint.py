@@ -37,6 +37,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from evoke_tpu_torch.parallel.collectives import barrier, broadcast_, gather_objects
+
 STATE_FILE = "state.pt"
 
 
@@ -65,11 +67,21 @@ def _replace_file(write, path: str) -> None:
 class CheckpointManager:
     """Slots ``current`` and ``best`` under ``directory`` (see the module
     docstring). ``async_save`` writes on a background thread; ``wait()``
-    joins it and raises what it raised."""
+    joins it and raises what it raised.
 
-    def __init__(self, directory: str, async_save: bool = False):
+    ``mesh`` (a dp ``core/mesh.Mesh`` whose ranks hold identical states):
+    rank 0 writes and every rank waits for the write (saves are synchronous
+    then); a restore reads the slot on rank 0 and broadcasts the state and
+    the meta to every rank; ``async_save`` with a mesh raises."""
+
+    def __init__(self, directory: str, async_save: bool = False, mesh=None):
+        if async_save and mesh is not None:
+            raise ValueError("CheckpointManager: async_save under a dp mesh is not supported "
+                             "(rank 0 writes while every rank waits)")
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -91,6 +103,9 @@ class CheckpointManager:
         other slots hard-linked to it) with ``meta``."""
         names = (names,) if isinstance(names, str) else tuple(names)
         self.wait()                      # serialise in-flight saves
+        if not self.writer:
+            barrier(self.mesh)           # rank 0 is writing
+            return
         host = _to_host(state.state_dict())
         meta = dict(meta or {})
 
@@ -109,6 +124,8 @@ class CheckpointManager:
 
         if not self.async_save:
             write()
+            if self.mesh is not None:
+                barrier(self.mesh)
             return
 
         def run():
@@ -130,16 +147,42 @@ class CheckpointManager:
         Returns the slot's meta."""
         self.wait()
         slot = self._slot(name)
-        blob = torch.load(os.path.join(slot, STATE_FILE), map_location="cpu", weights_only=True)
-        if isinstance(state, torch.nn.Module):
-            state.load_state_dict({**blob["params"], **blob["buffers"]}, strict=True)
-        else:
-            state.load_state_dict(blob)
         meta = {}
-        if os.path.exists(slot + ".meta.json"):
-            with open(slot + ".meta.json") as f:
-                meta = json.load(f)
+        if self.writer:
+            blob = torch.load(os.path.join(slot, STATE_FILE), map_location="cpu",
+                              weights_only=True)
+            if isinstance(state, torch.nn.Module):
+                state.load_state_dict({**blob["params"], **blob["buffers"]}, strict=True)
+            else:
+                state.load_state_dict(blob)
+            if os.path.exists(slot + ".meta.json"):
+                with open(slot + ".meta.json") as f:
+                    meta = json.load(f)
+        if self.mesh is not None:
+            meta = _broadcast_state(state, meta, self.mesh)
         return meta
+
+
+def _broadcast_state(state, meta, mesh):
+    """Rank 0's restored ``state`` (a module or a ``TrainState``: tensors and
+    counters) and ``meta`` onto every rank; returns the meta."""
+    module = state if isinstance(state, torch.nn.Module) else state.model
+    tensors = list(module.parameters()) + list(module.buffers())
+    counters = {}
+    if not isinstance(state, torch.nn.Module):
+        opt = state.opt
+        for g in opt.groups.values():
+            for key in ("master", "mu", "nu", "nu_max", "acc"):
+                tensors += list(getattr(g, key, None) or [])
+        counters = {"step": state.step, "count": opt.count, "mini_step": opt.mini_step,
+                    "lr_scale": opt.lr_scale}
+    broadcast_(tensors, mesh)
+    meta, counters = gather_objects((meta, counters), mesh)[0]
+    if counters:
+        state.step = counters["step"]
+        state.opt.count, state.opt.mini_step = counters["count"], counters["mini_step"]
+        state.opt.lr_scale = counters["lr_scale"]
+    return meta
 
 
 def _write_json(obj, path: str) -> None:

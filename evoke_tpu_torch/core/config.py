@@ -6,9 +6,8 @@ original). Precedence is the reference's: defaults <- YAML <- overrides <-
 CLI argv, and an unknown argv key raises ``ValueError``. PyYAML is imported
 only when a YAML file is given.
 
-Fields the port does not run yet are kept so configs and argv stay
-interchangeable; the code that reads them raises ``NotImplementedError``
-naming its ROADMAP item (e.g. ``decode.serve_dp``, A13).
+Every field of the JAX config is kept, so configs and argv stay
+interchangeable.
 """
 
 from __future__ import annotations
@@ -113,7 +112,9 @@ class DecodeConfig:
     seg_steps: int = 10
     dispatch_segs: int = 4
     pack_batches: int = 4
-    serve_dp: int = 0                            # 0 only (multi-GPU: ROADMAP A13)
+    # 0 = one device; N > 0 = a pure-dp mesh of N ranks (one card each);
+    # -1 = every visible card (cli.py, core/mesh.py)
+    serve_dp: int = 0
 
 
 @dataclass

@@ -11,7 +11,8 @@ Images are decoded and transformed in a thread pool.
 
 ``Prefetcher`` pulls loader batches on a background thread, and
 ``device_prefetch`` copies them from pinned host memory to the card with
-``non_blocking=True``, ``depth`` batches ahead of the consumer."""
+``non_blocking=True``, ``depth`` batches ahead of the consumer (under a dp
+mesh, each rank its own rows)."""
 
 from __future__ import annotations
 
@@ -73,9 +74,10 @@ class MultiviewBatcher:
                                             add_bos_eos=self.add_bos_eos)
 
     def _build_batch(self, group: List[Example], rng: np.random.Generator,
-                     pool: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
+                     pool: ThreadPoolExecutor, mesh=None) -> Dict[str, np.ndarray]:
         n_a, n_x = self.n_anchor, self.n_aux
         total = n_a + n_x
+        decode = range(total) if mesh is None else range(total)[mesh.rows(total)]
         s = self.transform.image_size
         img_dtype = np.uint8 if getattr(self.transform, "output_uint8", False) else np.float32
         images = np.zeros((total, s, s, 3), img_dtype)
@@ -117,6 +119,7 @@ class MultiviewBatcher:
 
         # each image's transform seed is drawn here, in slot order, so the
         # worker threads' scheduling cannot reorder the augmentation draws
+        # (a dp rank draws every seed and decodes only its own image rows)
         seeds = [int(rng.integers(0, 2**31)) for _ in jobs]
 
         def work(job):
@@ -124,7 +127,7 @@ class MultiviewBatcher:
             img = load_image(path, self.image_dir)
             images[slot] = self.transform(img, rng=np.random.default_rng(seed))
 
-        list(pool.map(work, zip(jobs, seeds)))
+        list(pool.map(work, [(j, sd) for j, sd in zip(jobs, seeds) if j[0] in decode]))
         mask = (ids != self.tokenizer.pad_id).astype(np.int32)
         batch = {"images": images, "ids": ids, "mask": mask, "pids": pids, "valid": valid,
                  "_image_ids": image_ids, "_gts": gts}
@@ -134,6 +137,9 @@ class MultiviewBatcher:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self._batches()
+
+    def _batches(self, mesh=None) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.examples))
         rng = np.random.default_rng(self.seed + self._epoch)
         self._epoch += 1
@@ -145,7 +151,32 @@ class MultiviewBatcher:
                 if len(idx) < self.n_anchor and self.drop_last:
                     break
                 group = [self.examples[i] for i in idx]
-                yield self._build_batch(group, rng, pool)
+                yield self._build_batch(group, rng, pool, mesh)
+
+
+class _RankView:
+    """A ``MultiviewBatcher`` as one dp rank iterates it (see ``rank_view``)."""
+
+    def __init__(self, batcher: MultiviewBatcher, mesh):
+        self.batcher, self.mesh = batcher, mesh
+
+    def __len__(self) -> int:
+        return len(self.batcher)
+
+    def __iter__(self):
+        return self.batcher._batches(self.mesh)
+
+
+def rank_view(loader, mesh):
+    """``loader`` as the rank of a dp ``mesh`` iterates it: a
+    ``MultiviewBatcher``'s batches keep the global layout (every text row,
+    pid, flag and host extra; the auxiliary views deduplicated over the
+    global batch) but decode only the image rows the rank owns
+    (``mesh.rows``), the others left zero, so the host's decode work splits
+    over the ranks. Any other loader (or no mesh) is returned as it is."""
+    if mesh is None or mesh.dp == 1 or not isinstance(loader, MultiviewBatcher):
+        return loader
+    return _RankView(loader, mesh)
 
 
 def to_device(batch, device: torch.device):
@@ -165,11 +196,26 @@ def to_device(batch, device: torch.device):
     return dev, host
 
 
-def device_prefetch(batches, device: torch.device, depth: int = 2):
-    """Yield (device_batch, host_extras) with up to ``depth`` copies in flight."""
+def device_prefetch(batches, device: torch.device, depth: int = 2, mesh=None):
+    """Yield (device_batch, host_extras) with up to ``depth`` copies in flight.
+
+    With a dp ``mesh`` each rank copies only the rows it owns of every
+    device entry (``core/mesh.shard_batch``: a leading dim that does not
+    divide dp raises) to its own device; the host extras stay whole. Every
+    rank must iterate the same loader, so that each sees the same number of
+    batches (the loaders pad the last one to the static shape); a rank
+    decodes only its own images when the loader is its ``rank_view``."""
+    if mesh is not None:
+        from evoke_tpu_torch.core.mesh import shard_batch
+
     pending: "collections.deque" = collections.deque()
     for batch in batches:
-        pending.append(to_device(batch, device))
+        if mesh is not None:
+            host = {k: v for k, v in batch.items() if k.startswith("_")}
+            data = {k: v for k, v in batch.items() if not k.startswith("_")}
+            pending.append((shard_batch(data, mesh), host))
+        else:
+            pending.append(to_device(batch, device))
         if len(pending) > depth:
             yield pending.popleft()
     while pending:

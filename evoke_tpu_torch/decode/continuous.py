@@ -443,14 +443,23 @@ class ContinuousServer:
     (vals, idx)`` is also given: that rewrites the fused tail's [N, k]
     candidates, and the step_wrapper is then ignored (the load-testing hooks
     of the JAX package; a loader batch's host ``_aux`` [E] int32 reaches the
-    step as ``aux``, per slot)."""
+    step as ``aux``, per slot).
+
+    ``mesh`` (a pure-dp ``core/mesh.Mesh``; the device is then the rank's):
+    the slots shard over dp (``slots % dp == 0``, as JAX asserts). Each rank
+    runs its own engine, ring caches and CUDA graphs over ``slots / dp``
+    slots, fed with its rows of every loader batch (K1 in ring mode and K2
+    at its rows); the encoder gathers the visual features across ranks, one
+    gather per loader batch in loader order on every rank. A study's report
+    does not depend on its slot, so the reports are the one-device engine's;
+    they are gathered from every rank at the end, in loader order."""
 
     def __init__(self, model, tokenizer, *, max_seq_len: int = 100, slots: int = 64,
                  beam_size: int = 3, seg_steps: int = 10, dispatch_segs: int = 4,
                  pack_batches: int = 4, suppress_unk: bool = False,
                  length_penalty: str = "", step_wrapper=None, topk_wrapper=None,
                  beam_kv: str = "auto", kv_cache_dtype: str = "", device="cuda",
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         """``graphs``: None captures the loop into CUDA graphs on a CUDA
         device and runs it eagerly on the CPU; False runs it eagerly on
         either (an A/B on the card)."""
@@ -466,13 +475,20 @@ class ContinuousServer:
         from types import SimpleNamespace
 
         from evoke_tpu_torch.core.device import resolve_device
+        from evoke_tpu_torch.ops.fused_logit_topk import use_fused_logit_topk
+        from evoke_tpu_torch.ops.sharding import check_divisible
         from evoke_tpu_torch.train.steps import resolve_beam_kv
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            check_divisible(slots, mesh, "decode.slots")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.ancestor_kv = resolve_beam_kv(SimpleNamespace(beam_kv=beam_kv),
-                                           serving=True) == "ancestor"
+                                           serving=True, mesh=mesh) == "ancestor"
         self.model, self.tokenizer = model, tokenizer
         self.max_len = max_seq_len
+        # this rank's slots
+        slots = slots if mesh is None else slots // mesh.dp
         self.slots, self.k, self.seg_steps = slots, beam_size, seg_steps
         self.dispatch_segs = max(int(dispatch_segs), 1)
         # admission looks ahead depth * dispatch_segs segments (the host learns
@@ -482,7 +498,7 @@ class ContinuousServer:
         self.pack_batches = max(int(pack_batches), 1)
         self._max_partners = getattr(model, "fusion_max_partners", None)
         suppress = (tokenizer.unk_id,) if suppress_unk else ()
-        self.fused_topk = fused = (getattr(model, "decoder_kind", "r2gen") == "r2gen"
+        self.fused_topk = fused = (use_fused_logit_topk(model, True, mesh=mesh)
                                    and (step_wrapper is None or topk_wrapper is not None))
 
         def raw_step(tok, p, age_rows, dec, att_mask, aux):
@@ -510,13 +526,15 @@ class ContinuousServer:
     def encode_pack(self, batch) -> Dict[str, Any]:
         """A device loader batch -> {'cross_k', 'cross_v', 'att_mask'}: the
         encoder and each decoder layer's cross K/V, one row per anchor."""
+        from evoke_tpu_torch.core.mesh import use_mesh
         from evoke_tpu_torch.train.steps import maybe_normalize_images
 
         batch = maybe_normalize_images(batch)
         e = batch["ids"].shape[0]
         inc = [batch["inc_ids"], batch["inc_mask"]] if "inc_ids" in batch else []
-        enc, att_mask = self.model.encode_for_decode(batch["images"], batch["pids"],
-                                                     batch["valid"], e, *inc)
+        with use_mesh(self.mesh):
+            enc, att_mask = self.model.encode_for_decode(batch["images"], batch["pids"],
+                                                         batch["valid"], e, *inc)
         st = self.model.init_decode_state(enc, e, 1)
         return {"cross_k": st["cross_k"], "cross_v": st["cross_v"], "att_mask": att_mask}
 
@@ -555,7 +573,8 @@ class ContinuousServer:
         dispatch order. Pack consumption lives on the device (``pack_pos``),
         so dispatching ahead of the reads stays exact; the host switches packs
         (reset_pos) once a lagged read shows the current one exhausted."""
-        from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch, to_device
+        from evoke_tpu_torch.data.batching import (Prefetcher, device_prefetch, rank_view,
+                                                   to_device)
         from evoke_tpu_torch.serve import EMPTY_REPORT, checked_partners, with_host_valid
 
         captured_before = 0.0 if self.loop is None else self.loop.capture_s
@@ -570,14 +589,21 @@ class ContinuousServer:
         loader_done = False
         t_enc = t_disp = t_wait = 0.0
         steps = 0
+        mesh = self.mesh
         batches = iter(device_prefetch(
-            checked_partners(with_host_valid(Prefetcher(loader, prefetch)), self._max_partners),
-            self.device, prefetch))
+            checked_partners(with_host_valid(Prefetcher(rank_view(loader, mesh), prefetch)),
+                             self._max_partners),
+            self.device, prefetch, mesh=mesh))
+        n_batches = 0
         t0 = time.perf_counter()
+
+        def local(x):
+            """This rank's rows of a host extra (the whole of it on one device)."""
+            return x if mesh is None or x is None else x[mesh.rows(len(x))]
 
         def pull_pack():
             """-> (pack, n_valid, host tickets) or None when the loader is done."""
-            nonlocal next_ticket, n_total, loader_done, t_enc
+            nonlocal next_ticket, n_total, loader_done, t_enc, n_batches
             t_pp = time.perf_counter()
             try:
                 dev, host = next(batches)
@@ -585,10 +611,15 @@ class ContinuousServer:
                 loader_done = True
                 t_enc += time.perf_counter() - t_pp
                 return None
-            ids = host["_image_ids"]
-            gts = host.get("_gts")
+            e_all = len(host["_image_ids"])
+            ids = local(host["_image_ids"])
+            gts = local(host.get("_gts"))
             e = len(ids)
-            valid = np.asarray(host["_valid"])[:e]
+            # a record's place in loader order: (batch, row of the global batch)
+            row0 = 0 if mesh is None else mesh.rows(e_all).start
+            order = [(n_batches, row0 + j) for j in range(e)]
+            n_batches += 1
+            valid = local(np.asarray(host["_valid"])[:e_all])
             # padded anchors must form a suffix for FIFO prefix admission
             n_valid = int(valid.sum())
             if not valid[:n_valid].all():
@@ -598,9 +629,9 @@ class ContinuousServer:
             tickets = np.arange(start, start + e, dtype=np.int32)
             t_submit = time.perf_counter()
             for j in range(n_valid):
-                meta[start + j] = {"id": ids[j], "_t_submit": t_submit,
+                meta[start + j] = {"id": ids[j], "_t_submit": t_submit, "_order": order[j],
                                    **({"gt": gts[j]} if gts is not None else {})}
-            aux = host.get("_aux")
+            aux = local(host.get("_aux"))
             # pinned, non-blocking copies: a pageable one would wait for the
             # dispatches queued on the stream
             pack.update(to_device({"ticket": tickets, "aux": (
@@ -660,7 +691,9 @@ class ContinuousServer:
             cur_reset, cur_id = True, 0
             reads = _HostReads(loop, depth)
             inflight: deque = deque()   # (read slot, pack id, avail, tickets, dispatch time)
-            while len(results) < n_total:
+            # under a mesh a rank whose studies are all done goes on until the
+            # loader is: every rank must pull (and gather) every batch
+            while len(results) < n_total or (mesh is not None and not loader_done):
                 while len(inflight) < depth:
                     t_d = time.perf_counter()
                     loop.dispatch(cur_avail, cur_reset)
@@ -716,6 +749,17 @@ class ContinuousServer:
             text = self.tokenizer.decode([int(x) for x in rec.pop("tokens")])
             rec["report"] = text if text.strip() else EMPTY_REPORT
             records.append(rec)
+        if mesh is not None:
+            # every rank's records, in loader order; the slowest rank's times
+            from evoke_tpu_torch.parallel.collectives import gather_objects
+
+            parts = gather_objects((records, wall, drain), mesh)
+            records = sorted((r for recs, _, _ in parts for r in recs),
+                             key=lambda r: r["_order"])
+            wall = max(w for _, w, _ in parts)
+            drain = max(d for _, _, d in parts)
+        for rec in records:
+            rec.pop("_order")
         drained = wall + drain
         stats = {"reports": float(len(records)), "wall_s": wall,
                  "reports_per_s": len(records) / wall if wall > 0 else float("nan"),

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from evoke_tpu_torch.losses.lm import lm_loss
-from evoke_tpu_torch.models.fusion import MultiviewFusion
+from evoke_tpu_torch.models.fusion import MultiviewFusion, gather_views
 from evoke_tpu_torch.models.heads import ProjectionHead
 from evoke_tpu_torch.models.layers import BertCrossLayer, BertLayer, make_cross_mask
 from evoke_tpu_torch.models.resnet import VisualExtractor
@@ -110,14 +110,25 @@ class FinetuneModel(nn.Module):
                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """images [B, H, W, 3] (anchors first) -> [n_anchor, 1+P, output_dim].
         ``train``: BatchNorms on batch statistics; ``rng``: dropout generator
-        (read only when ``train``)."""
+        (read only when ``train``). Under an active dp mesh
+        (``core/mesh.use_mesh``) every input is this rank's block of the
+        global batch's rows and the output is its anchors' (the global
+        anchors' block ``mesh.rank``); the visual features are gathered at
+        the fusion (``fusion.gather_views``)."""
+        return self._encode(images, pid_codes, valid, n_anchor, inc_ids, inc_mask, train,
+                            rng)[0]
+
+    def _encode(self, images, pid_codes, valid, n_anchor, inc_ids, inc_mask, train, rng):
+        """-> (``encode``'s output, the valid flags of its anchors)."""
         rng = rng if train else None
         patches, avg = self.visual_extractor(images, train)
         image_embed = torch.cat([avg[:, None, :], patches], dim=1)
+        image_embed, pid_codes, valid, n_all, rows = gather_views(image_embed, pid_codes,
+                                                                  valid, n_anchor)
         if self.is_multiview_learning:
-            fused, _ = self.fusion(image_embed, pid_codes, valid, n_anchor, rng)
+            fused, _ = self.fusion(image_embed, pid_codes, valid, n_all, rng, rows)
         else:
-            fused = self.fusion.norm_only(image_embed[:n_anchor])
+            fused = self.fusion.norm_only(image_embed[rows])
         x = self.visual_head(fused, train)
         if inc_ids is not None:
             inc_feats = self.text_head(self.text_encoder(inc_ids, inc_mask, rng), train)
@@ -127,7 +138,7 @@ class FinetuneModel(nn.Module):
         else:
             for layer in self.visual_self_atten_layers:
                 x = layer(x, mask=None, rng=rng)
-        return x
+        return x, valid[rows]
 
     def forward(self, images, report_ids, report_mask, pid_codes, valid,
                 inc_ids: Optional[torch.Tensor] = None,
@@ -138,15 +149,17 @@ class FinetuneModel(nn.Module):
         ``train=True`` runs the BatchNorms on batch statistics (their running
         update waits for ``layers.commit_batch_stats``); dropout acts only
         when ``rng`` (a ``torch.Generator`` on the model's device) is given,
-        so ``train=True, rng=None`` is a training step without dropout."""
+        so ``train=True, rng=None`` is a training step without dropout.
+        Under an active dp mesh the losses are this rank's shares of the
+        global batch's (``losses/lm.py``)."""
         n_anchor = report_ids.shape[0]
         rng = rng if train else None
-        hidden = self.encode(images, pid_codes, valid, n_anchor, inc_ids, inc_mask,
-                             train=train, rng=rng)
+        hidden, anchor_valid = self._encode(images, pid_codes, valid, n_anchor, inc_ids,
+                                            inc_mask, train, rng)
         att_feats = hidden[:, 1:, :]
         att_mask = torch.ones(att_feats.shape[:2], dtype=torch.int32, device=hidden.device)
         log_probs = self.text_decoder(att_feats, att_mask, report_ids, report_mask, rng)
-        lm = lm_loss(log_probs, report_ids, report_mask, sample_mask=valid[:n_anchor])
+        lm = lm_loss(log_probs, report_ids, report_mask, sample_mask=anchor_valid)
         return {"lm": lm, "all_loss": lm}
 
     def encode_for_decode(self, images, pid_codes, valid, n_anchor: int,

@@ -8,18 +8,25 @@ The LayerNorms are torch ``nn.LayerNorm`` semantics (biased variance, eps
 training the attention probabilities take dropout (rate 0.1) on the dense
 and grouped routes; the kernel route is inference-only, as in JAX
 (fusion.py:164: ``use_pallas and not use_dropout``).
+
+Under a dp mesh the model gathers every rank's image features first
+(``models/finetune.py``): each rank then fuses its own block of anchors
+(``q_rows``) against the whole gathered batch, as GSPMD partitions JAX's
+global fusion.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from evoke_tpu_torch.core.mesh import active_mesh
 from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention, dropout
 from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+from evoke_tpu_torch.parallel.collectives import all_gather_batch
 
 
 def same_study_matrix(q_pids, k_pids, q_valid, k_valid):
@@ -30,6 +37,26 @@ def same_study_matrix(q_pids, k_pids, q_valid, k_valid):
     self_slot = (torch.arange(q, device=q_pids.device)[:, None]
                  == torch.arange(k, device=q_pids.device)[None, :])
     return eq & v & ~self_slot
+
+
+def gather_views(image_embed, pid_codes, valid, n_anchor: int):
+    """The fusion's view of the batch: (image_embed, pid_codes, valid,
+    n_anchor, anchor rows) of the global batch (``pid_codes[rows]`` and
+    ``valid[rows]`` are then this rank's anchors').
+
+    Without an active dp mesh these are the inputs and the first
+    ``n_anchor`` rows. Under one, the inputs are this rank's rows: the
+    features are gathered from every rank (with autograd: the backward keeps
+    this rank's rows of the summed gradient), the study codes and flags too,
+    and this rank fuses its block of the global anchors. A study's anchor and
+    its auxiliary views may sit on different ranks, so the same-study mask
+    crosses ranks as it crosses GSPMD's shards."""
+    mesh = active_mesh()
+    if mesh is None:
+        return image_embed, pid_codes, valid, n_anchor, slice(0, n_anchor)
+    n_all = n_anchor * mesh.dp
+    return (all_gather_batch(image_embed, mesh), all_gather_batch(pid_codes, mesh),
+            all_gather_batch(valid, mesh), n_all, mesh.rows(n_all))
 
 
 def max_partners_in(pids, valid, n_anchor: int) -> int:
@@ -74,9 +101,11 @@ class BatchedCrossViewAttention(nn.Module):
         self.fc_v = Dense(d_model, hd, dtype)
         self.fc_o = Dense(hd, d_model, dtype)
 
-    def forward(self, x_q, x_kv, study_mask, rng=None):
+    def forward(self, x_q, x_kv, study_mask, rng=None, q_offset: int = 0):
         """x_q [Q, T, D] anchors; x_kv [B, T, D] whole batch; study_mask [Q, B];
-        ``rng``: dropout generator of the attention probabilities."""
+        ``rng``: dropout generator of the attention probabilities;
+        ``q_offset``: the batch row of x_q's first anchor (a dp rank's block
+        of anchors starts there)."""
         qn, t, _ = x_q.shape
         b = x_kv.shape[0]
         h, dk = self.num_heads, self.dk
@@ -89,6 +118,7 @@ class BatchedCrossViewAttention(nn.Module):
         use_dropout = rng is not None and self.dropout_rate > 0.0
         kernel = self.use_pallas and not use_dropout
         drop = (lambda p: dropout(p, self.dropout_rate, rng)) if use_dropout else None
+        q_rows = torch.arange(q_offset, q_offset + qn, device=dev)
 
         if self.max_partners is not None and not kernel:
             g = min(int(self.max_partners), b)
@@ -96,7 +126,7 @@ class BatchedCrossViewAttention(nn.Module):
             order = torch.sort(torch.where(study_mask, cols, b + cols), dim=1).values[:, :g]
             pidx = order % b
             pvalid = order < b
-            slot_idx = torch.cat([torch.arange(qn, device=dev)[:, None], pidx], dim=1)
+            slot_idx = torch.cat([q_rows[:, None], pidx], dim=1)
             slot_valid = torch.cat([~has_partner[:, None], pvalid], dim=1)
             kg = k.reshape(b, t, h, dk)[slot_idx]                          # [Q, 1+G, T, h, dk]
             vg = v.reshape(b, t, h, dk)[slot_idx]
@@ -108,8 +138,8 @@ class BatchedCrossViewAttention(nn.Module):
 
         k = k.reshape(b * t, h, dk).transpose(0, 1)                       # [h, B*T, dk]
         v = v.reshape(b * t, h, dk).transpose(0, 1)
-        self_mask = ((torch.arange(qn, device=dev)[:, None]
-                      == torch.arange(b, device=dev)[None, :]) & ~has_partner[:, None])
+        self_mask = ((q_rows[:, None] == torch.arange(b, device=dev)[None, :])
+                     & ~has_partner[:, None])
         attend = study_mask | self_mask
         if kernel:
             out = masked_cross_view_attention(q, k, v, attend, t_tokens=t)
@@ -119,8 +149,10 @@ class BatchedCrossViewAttention(nn.Module):
             # copying k and v once per anchor to broadcast them
             qf = q.transpose(0, 1).reshape(1, h, qn * t, dk)
             mask = attend.repeat_interleave(t, dim=1).repeat_interleave(t, dim=0)
+            # the anchors' block is dim 2 here: dropout draws along it
+            drop2 = (lambda p: dropout(p, self.dropout_rate, rng, dim=2)) if drop else None
             out, _ = dot_attention(qf, k[None], v[None], mask=mask[None, None],
-                                   dropout_fn=drop)
+                                   dropout_fn=drop2)
             out = out[0].reshape(h, qn, t, dk).transpose(0, 1)
         return self.fc_o(out.transpose(1, 2).reshape(qn, t, h * dk))
 
@@ -143,17 +175,19 @@ class MultiviewFusion(nn.Module):
                                                    max_partners=max_partners, dtype=dtype,
                                                    dropout_rate=dropout_rate)
 
-    def forward(self, image_embed, pid_codes, valid, n_anchor: int, rng=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, image_embed, pid_codes, valid, n_anchor: int, rng=None,
+                q_rows: Optional[slice] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embed [B, T, D] (anchors first); pid_codes/valid [B] ->
         (fused [n_anchor, T, D], has_partner [n_anchor]); ``rng``: dropout
-        generator."""
+        generator; ``q_rows``: fuse only this block of the anchors (a dp
+        rank's), returning its rows."""
+        q_rows = slice(0, n_anchor) if q_rows is None else q_rows
         study_mask = same_study_matrix(pid_codes[:n_anchor], pid_codes,
-                                       valid[:n_anchor], valid)
+                                       valid[:n_anchor], valid)[q_rows]
         has_partner = study_mask.any(-1)
         x = self.layer_norm_1(image_embed)
-        x_q = x[:n_anchor]
-        fused = self.layer_norm_2(self.cross(x_q, x, study_mask, rng) + x_q)
+        x_q = x[q_rows]
+        fused = self.layer_norm_2(self.cross(x_q, x, study_mask, rng, q_rows.start) + x_q)
         return torch.where(has_partner[:, None, None], fused, x_q), has_partner
 
     def norm_only(self, image_embed):

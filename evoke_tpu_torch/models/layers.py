@@ -17,7 +17,9 @@ Training: every dropout site of the flax module is here with its rate, drawn
 by ``dropout`` from an explicit ``torch.Generator`` passed down as ``rng``
 (``rng=None`` is flax's ``deterministic=True``); ``BatchNorm(train=True)``
 uses batch statistics and leaves its running update pending until
-``commit_batch_stats``.
+``commit_batch_stats``. Under a dp mesh (``core/mesh.use_mesh``) both
+act on the global batch: BatchNorm sums its statistics over the ranks and
+dropout draws the global batch's mask.
 """
 
 from __future__ import annotations
@@ -29,21 +31,36 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from evoke_tpu_torch.core.mesh import active_mesh
 from evoke_tpu_torch.ops.lineage_attention import lineage_attention, lineage_masks
+from evoke_tpu_torch.parallel.collectives import all_reduce_sum
 
 NEG_INF = -1e9
 
 
-def dropout(x, rate: float, rng):
+def dropout(x, rate: float, rng, dim: int = 0):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate), the keep mask drawn from the generator ``rng``
-    on ``x``'s device. The identity when ``rng`` is None or ``rate`` is 0."""
+    on ``x``'s device. The identity when ``rng`` is None or ``rate`` is 0.
+
+    Under an active dp mesh (``core/mesh.use_mesh``) ``x`` holds this rank's
+    block of the global batch along ``dim``: the mask is drawn at the global
+    shape and this rank's block kept, so every rank draws what the one-device
+    step draws on the global batch, whatever the world size."""
     if rng is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mesh = active_mesh()
+    if mesh is not None and mesh.dp > 1:
+        shape = list(x.shape)
+        n = shape[dim]
+        shape[dim] = n * mesh.dp
+        u = torch.rand(shape, generator=rng, device=x.device).narrow(dim, mesh.rank * n, n)
+    else:
+        u = torch.rand(x.shape, generator=rng, device=x.device)
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -167,8 +184,17 @@ class BatchNorm(nn.Module):
         shape = [1] * x.ndim
         shape[axis] = x.shape[axis]
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        mesh = active_mesh()
+        if mesh is None:
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        else:
+            # the global batch's statistics: the sums of x and x^2 over every
+            # rank's rows (differentiable, so the backward is the global one)
+            sums = all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), mesh)
+            count = float(xf.numel() // xf.shape[axis] * mesh.dp)
+            mean = sums[0] / count
+            var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
         self._pending = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:

@@ -16,6 +16,11 @@ off builds the fusion's first LayerNorm alone.
 
 Dropout: ``encoder_dropout`` in the text encoder and 0.1 on the fusion's
 attention probabilities, drawn from ``rng`` when ``train``.
+
+Under a dp mesh (``core/mesh.use_mesh``) the contrastive losses run on the
+embeddings, study codes and flags gathered from every rank
+(``parallel/collectives.make_shardmap_loss``), as GSPMD runs JAX's on the
+global batch.
 """
 
 from __future__ import annotations
@@ -25,14 +30,16 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from evoke_tpu_torch.core.mesh import active_mesh
 from evoke_tpu_torch.losses.contrastive import (global_alignment_loss,
                                                 local_token_alignment_loss,
                                                 multi_positive_image_loss,
                                                 multi_positive_image_loss_avg)
-from evoke_tpu_torch.models.fusion import MultiviewFusion
+from evoke_tpu_torch.models.fusion import MultiviewFusion, gather_views
 from evoke_tpu_torch.models.heads import ProjectionHead
 from evoke_tpu_torch.models.resnet import VisualExtractor
 from evoke_tpu_torch.models.text_encoder import TextEncoder
+from evoke_tpu_torch.parallel.collectives import make_shardmap_loss
 
 PRETRAIN_LOSSES = ("all", "mpc", "mpc+global", "mpc+local", "global+local")
 MUL_POS_FORMULATIONS = ("soft", "avg")
@@ -79,14 +86,21 @@ class PretrainModel(nn.Module):
                       rng: Optional[torch.Generator] = None):
         """images [B, H, W, 3] (anchors first) -> (proj [n_anchor, 1+P, out],
         raw_global [B, d_vf])."""
+        return self._encode_images(images, pid_codes, valid, n_anchor, train, rng)[:2]
+
+    def _encode_images(self, images, pid_codes, valid, n_anchor, train, rng):
+        """-> (``encode_images``'s two outputs, the pid codes and valid flags
+        of ``proj``'s anchors)."""
         rng = rng if train else None
         patches, avg = self.visual_extractor(images, train)
         image_embed = torch.cat([avg[:, None, :], patches], dim=1)
+        image_embed, pid_codes, valid, n_all, rows = gather_views(image_embed, pid_codes,
+                                                                  valid, n_anchor)
         if self.is_multiview_learning:
-            fused, _ = self.fusion(image_embed, pid_codes, valid, n_anchor, rng)
+            fused, _ = self.fusion(image_embed, pid_codes, valid, n_all, rng, rows)
         else:
-            fused = self.fusion.norm_only(image_embed[:n_anchor])
-        return self.visual_head(fused, train), avg
+            fused = self.fusion.norm_only(image_embed[rows])
+        return self.visual_head(fused, train), avg, pid_codes[rows], valid[rows]
 
     def encode_text(self, input_ids, attention_mask, train: bool = False,
                     rng: Optional[torch.Generator] = None):
@@ -100,11 +114,22 @@ class PretrainModel(nn.Module):
         pid_codes / valid [B] -> {multiview_loss, instance_loss,
         sen_text_loss, all_loss}, float32 scalars. ``train``: BatchNorms on
         batch statistics (their running update waits for
-        ``layers.commit_batch_stats``) and dropout from ``rng``."""
+        ``layers.commit_batch_stats``) and dropout from ``rng``. Under an
+        active dp mesh every input is this rank's rows, each loss is computed
+        on the gathered global batch, and the outputs are this rank's 1/dp
+        shares (they sum to the global losses)."""
         n_anchor = text_ids.shape[0]
-        proj, raw_global = self.encode_images(images, pid_codes, valid, n_anchor, train, rng)
+        proj, raw_global, anchor_pids, anchor_valid = self._encode_images(
+            images, pid_codes, valid, n_anchor, train, rng)
         v_fc, v_att = proj[:, 0, :], proj[:, 1:, :]
-        anchor_pids, anchor_valid = pid_codes[:n_anchor], valid[:n_anchor]
+        mesh = active_mesh()
+
+        def global_loss(fn, *shards):
+            # under a dp mesh: the loss of the gathered global batch, of which
+            # this rank backpropagates its 1/dp share
+            if mesh is None:
+                return fn(*shards)
+            return make_shardmap_loss(mesh, fn)(*shards) / mesh.dp
 
         zero = torch.zeros((), dtype=torch.float32, device=proj.device)
         mul_pos = zero
@@ -112,7 +137,8 @@ class PretrainModel(nn.Module):
             # over every image (anchors and auxiliary views), on the raw global features
             mp_fn = (multi_positive_image_loss_avg if self.mul_pos_formulation == "avg"
                      else multi_positive_image_loss)
-            mul_pos = mp_fn(raw_global, pid_codes, valid, self.region_temp)
+            mul_pos = global_loss(lambda e, p, v: mp_fn(e, p, v, self.region_temp),
+                                  raw_global, pid_codes, valid)
         if self.pretrain_loss == "mpc":
             return {"multiview_loss": mul_pos, "instance_loss": zero,
                     "sen_text_loss": zero, "all_loss": mul_pos}
@@ -121,11 +147,16 @@ class PretrainModel(nn.Module):
         t_fc, t_att = tproj[:, 0, :], tproj[:, 1:, :]
         instance = local = zero
         if self.pretrain_loss in ("all", "mpc+global", "global+local"):
-            instance = global_alignment_loss(v_fc, t_fc, anchor_pids, anchor_valid,
-                                             self.instance_temp)
+            instance = global_loss(
+                lambda vf, tf, p, v: global_alignment_loss(vf, tf, p, v, self.instance_temp),
+                v_fc, t_fc, anchor_pids, anchor_valid)
         if self.pretrain_loss in ("all", "mpc+local", "global+local"):
-            local = local_token_alignment_loss(
-                v_att, t_att, text_mask[:, 1:] if self.mask_local_pad else None,
-                self.region_temp, valid=anchor_valid)
+            if self.mask_local_pad:
+                local = global_loss(lambda va, ta, tm, v: local_token_alignment_loss(
+                    va, ta, tm, self.region_temp, valid=v),
+                    v_att, t_att, text_mask[:, 1:], anchor_valid)
+            else:
+                local = global_loss(lambda va, ta, v: local_token_alignment_loss(
+                    va, ta, None, self.region_temp, valid=v), v_att, t_att, anchor_valid)
         return {"multiview_loss": mul_pos, "instance_loss": instance,
                 "sen_text_loss": local, "all_loss": mul_pos + instance + local}

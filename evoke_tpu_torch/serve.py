@@ -21,8 +21,9 @@ from typing import Any, Dict, Iterable, Iterator, List, Tuple
 import numpy as np
 
 from evoke_tpu_torch.core.device import resolve_device
-from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch
+from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch, rank_view
 from evoke_tpu_torch.models.fusion import max_partners_in
+from evoke_tpu_torch.parallel.collectives import all_gather_batch
 from evoke_tpu_torch.train.steps import make_generate_step
 
 # the reference substitutes a canned line for empty generations
@@ -30,23 +31,33 @@ EMPTY_REPORT = "there is no evidence of pulmonary."
 
 
 def generate_stream(gen, batches: Iterable[Tuple[Dict, Dict]],
-                    depth: int = 2) -> Iterator[Tuple[Dict, np.ndarray]]:
+                    depth: int = 2, mesh=None) -> Iterator[Tuple[Dict, np.ndarray]]:
     """Yield ``(host_extras, seqs)`` in order, up to ``depth`` results in flight.
+
+    Under a dp ``mesh`` ``gen`` returns this rank's rows; each result is
+    gathered from every rank at dequeue (on the device), so every rank
+    yields the global batch's ``seqs``. All ranks issue their encoder
+    gathers and these in one order: the same loader, the same depth.
 
     ``gen`` reuses its beam loop's buffers for every batch. What is held back
     here is each batch's ``seqs``, a tensor of its own that ``gen`` makes on
     the current stream before it returns; the next batch's copies into those
     buffers are queued on the same stream after it, so stream order alone
     keeps a held result from being overwritten."""
+    def read(out):
+        if mesh is not None:
+            out = all_gather_batch(out, mesh)
+        return out.cpu().numpy()
+
     q: deque = deque()
     for dev, host in batches:
         q.append((host, gen(dev)))
         while len(q) > depth:
             h, out = q.popleft()
-            yield h, out.cpu().numpy()
+            yield h, read(out)
     while q:
         h, out = q.popleft()
-        yield h, out.cpu().numpy()
+        yield h, read(out)
 
 
 def with_host_valid(batches):
@@ -81,15 +92,23 @@ class ReportServer:
     plus host-side ``_image_ids`` and optional ``_gts``."""
 
     def __init__(self, model, tokenizer, decode_cfg, max_seq_len: int = 100,
-                 depth: int = 2, device="cuda", graphs=None, topk_hook=None):
+                 depth: int = 2, device="cuda", graphs=None, topk_hook=None, mesh=None):
         """``graphs``: None captures the decode steps into CUDA graphs on a CUDA
         device and runs them eagerly on the CPU; False runs them eagerly on
         either (for an A/B on the card). ``topk_hook``: the load-testing hook of
         ``train/steps.make_generate_step`` on the fused tail; it reads the
-        loader batches' device entries (a ``target_len`` [n_anchor], say)."""
+        loader batches' device entries (a ``target_len`` [n_anchor], say).
+
+        ``mesh`` (a pure-dp ``core/mesh.Mesh``; the device is then the
+        rank's): every rank iterates the same loader, copies its rows of each
+        batch, encodes its images and decodes its anchors (K1 and K2 at its
+        rows); the tokens are gathered from every rank before the records are
+        made, so every rank returns all records in loader order and the stats
+        count global reports."""
         self.tokenizer = tokenizer
         self.depth = depth
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # grouped fusion attention truncates partners beyond its static bound;
         # serve() checks every batch host-side and fails loudly instead
         self._max_partners = getattr(model, "fusion_max_partners", None)
@@ -97,7 +116,7 @@ class ReportServer:
             flag: make_generate_step(model, tokenizer, decode_cfg, max_seq_len,
                                      with_indication=flag, serving=True,
                                      device=self.device, graphs=graphs,
-                                     topk_hook=topk_hook)
+                                     topk_hook=topk_hook, mesh=mesh)
             for flag in (True, False)}
         self.stats: Dict[str, float] = {}
 
@@ -118,11 +137,12 @@ class ReportServer:
                 yield dev, host
 
         batches = stamped(device_prefetch(
-            checked_partners(with_host_valid(Prefetcher(loader, prefetch)), self._max_partners),
-            self.device, prefetch))
+            checked_partners(with_host_valid(Prefetcher(rank_view(loader, self.mesh), prefetch)),
+                             self._max_partners),
+            self.device, prefetch, mesh=self.mesh))
         latencies: List[float] = []
         t0 = time.perf_counter()
-        for host, seqs in generate_stream(gen, batches, self.depth):
+        for host, seqs in generate_stream(gen, batches, self.depth, self.mesh):
             latencies.append(time.perf_counter() - host["_t_submit"])
             texts = self.tokenizer.decode_batch(seqs.tolist())
             gts = host.get("_gts")

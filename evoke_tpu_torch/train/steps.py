@@ -36,9 +36,13 @@ import torch
 
 from evoke_tpu_torch.core import prng
 from evoke_tpu_torch.core.device import resolve_device
+from evoke_tpu_torch.core.mesh import use_mesh
 from evoke_tpu_torch.decode.beam import (BeamLoop, DiverseBeamLoop, DiverseSampleLoop,
                                          SampleLoop, make_sampler)
 from evoke_tpu_torch.models.layers import commit_batch_stats
+from evoke_tpu_torch.ops.fused_logit_topk import use_fused_logit_topk
+from evoke_tpu_torch.ops.sharding import mesh_allows_kernels
+from evoke_tpu_torch.parallel.collectives import all_reduce_, all_reduce_sum
 from evoke_tpu_torch.train.optim import Optimizer
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -104,9 +108,20 @@ class TrainState:
         self.step = int(d["step"])
 
 
+def _global_metrics(out, mesh) -> Dict[str, torch.Tensor]:
+    """Detached metrics; under a mesh the ranks' shares summed (one
+    all-reduce), so every rank holds the global batch's values."""
+    out = {k: v.detach() for k, v in out.items()}
+    if mesh is None:
+        return out
+    keys = sorted(out)
+    total = all_reduce_sum(torch.stack([out[k].float() for k in keys]), mesh)
+    return {k: total[i].to(out[k].dtype) for i, k in enumerate(keys)}
+
+
 def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss",
                     with_indication: bool = False, task: str = "finetune",
-                    dropout: bool = True):
+                    dropout: bool = True, mesh=None):
     """-> ``train_step(state, batch) -> metrics`` (the model's output dict,
     detached, on the device; nothing is read back).
 
@@ -115,50 +130,67 @@ def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss"
     and, ``with_indication``, inc_ids / inc_mask. Dropout masks of step ``s``
     come from ``prng.step_generator(seed, s, f"{task}-dropout")``, so a
     resumed run draws what an unbroken run draws; ``dropout=False`` trains
-    with dropout off (BatchNorm still on batch statistics)."""
+    with dropout off (BatchNorm still on batch statistics).
+
+    ``mesh`` (``core/mesh.Mesh``): ``batch`` holds this rank's rows
+    (``core/mesh.shard_batch``) and the step computes the one-device step on
+    the global batch: the forward and backward run under ``use_mesh`` (the
+    visual features gathered at the fusion, BatchNorm statistics and loss
+    denominators summed over ranks, dropout masks drawn at the global shape),
+    each rank's loss is its share of the global loss, the gradients are
+    summed over ranks before the optimizer's chain, and the returned metrics
+    are the global ones. Every rank's parameters stay identical."""
     name = f"{task}-dropout"
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         batch = maybe_normalize_images(batch)
         device = batch["ids"].device
         rng = prng.step_generator(seed, state.step, name, device) if dropout else None
-        out = model(*_model_args(batch, with_indication), train=True, rng=rng)
-        out[loss_key].backward()
+        with use_mesh(mesh):
+            out = model(*_model_args(batch, with_indication), train=True, rng=rng)
+            out[loss_key].backward()
         commit_batch_stats(model)
         grads = {n: p.grad for n, p in model.named_parameters()}
+        if mesh is not None:
+            all_reduce_([g for g in grads.values() if g is not None], mesh)
         opt.step(grads)
         for p in model.parameters():
             p.grad = None
         state.step += 1
-        return {k: v.detach() for k, v in out.items()}
+        return _global_metrics(out, mesh)
 
     return train_step
 
 
-def make_eval_step(model, with_indication: bool = False):
+def make_eval_step(model, with_indication: bool = False, mesh=None):
     """-> ``eval_step(state, batch) -> metrics``: the forward with
-    ``train=False`` (running statistics, no dropout), no gradients."""
+    ``train=False`` (running statistics, no dropout), no gradients. Under
+    ``mesh`` the batch is this rank's rows and the metrics the global
+    batch's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         batch = maybe_normalize_images(batch)
-        return model(*_model_args(batch, with_indication), train=False)
+        with use_mesh(mesh):
+            out = model(*_model_args(batch, with_indication), train=False)
+        return _global_metrics(out, mesh)
 
     return eval_step
 
 
-def resolve_beam_kv(decode_cfg, serving: bool) -> str:
+def resolve_beam_kv(decode_cfg, serving: bool, mesh=None) -> str:
     """DecodeConfig.beam_kv 'auto' -> 'ancestor' on the serving path (the
     lineage kernel on the card, its plain version on the CPU) unless the
-    caches are int8 (the kernel reads bf16 / float32 caches), 'reorder' on
-    eval paths. An explicit value always wins."""
+    caches are int8 (the kernel reads bf16 / float32 caches) or the mesh
+    cannot carry the kernel (mp > 1, ``ops/sharding.mesh_allows_kernels``),
+    'reorder' on eval paths. An explicit value always wins."""
     beam_kv = str(getattr(decode_cfg, "beam_kv", "auto"))
     if beam_kv not in ("auto", "reorder", "ancestor"):
         raise ValueError(f"beam_kv must be auto|reorder|ancestor, got {beam_kv!r}")
     if beam_kv != "auto":
         return beam_kv
     int8 = str(getattr(decode_cfg, "kv_cache_dtype", "") or "") == "int8"
-    return "ancestor" if serving and not int8 else "reorder"
+    return "ancestor" if serving and not int8 and mesh_allows_kernels(mesh) else "reorder"
 
 
 def kv_cache_dtype(decode_cfg, model) -> str:
@@ -195,13 +227,6 @@ def sampling_method(decode_cfg):
     return method, top_k, top_p
 
 
-def use_fused_topk(model, decode_cfg, serving: bool) -> bool:
-    """The fused vocab tail on the serving path of the r2gen decoder, unless
-    the decoding constraint needs the full logits; eval paths stay unfused."""
-    return (serving and not bool(decode_cfg.decoding_constraint)
-            and getattr(model, "decoder_kind", "r2gen") == "r2gen")
-
-
 def cache_schedule(decode_cfg, max_seq_len: int, serving: bool):
     phases = int(getattr(decode_cfg, "cache_phases", 0))
     if phases <= 0:
@@ -214,7 +239,7 @@ def cache_schedule(decode_cfg, max_seq_len: int, serving: bool):
 def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
                        with_indication: bool = False, serving: bool = False,
                        all_samples: bool = False, device="cuda", graphs=None,
-                       logits_hook=None, topk_hook=None, seed: int = 0):
+                       logits_hook=None, topk_hook=None, seed: int = 0, mesh=None):
     """-> ``generate_step(batch) -> seqs [n_anchor, L]``. With ``all_samples``
     every candidate: [n_anchor, beam, L] beams best-first (plain and diverse
     beam search), [n_anchor, group_size, L] for diverse sampling,
@@ -246,7 +271,15 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     (callers pass equivalent forcings). ``pos`` is the step (a Python
     number); ``batch`` holds every entry of the batch but ``images``, in
     buffers of the loop that each batch is copied into, so a hook reads the
-    current batch's values under replay too."""
+    current batch's values under replay too.
+
+    ``mesh`` (a pure-dp ``core/mesh.Mesh``): ``batch`` holds this rank's rows
+    (``core/mesh.shard_batch``; a batch that does not divide dp raises
+    there). The encoder runs under ``use_mesh`` (the visual features
+    gathered at the fusion) and the rank decodes its own anchors, with K1 and
+    K2 at its rows; ``seqs`` are those rows (``serve.generate_stream``
+    gathers them). The loops hold no collective, so the captured graphs are
+    per rank."""
     device = resolve_device(device)
     beam = int(decode_cfg.beam_size)
     groups = max(int(decode_cfg.group_size), 1)
@@ -273,8 +306,10 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     schedule = (cache_schedule(decode_cfg, max_seq_len, serving)
                 if mode in ("beam", "sample") else (max_seq_len,))
     ancestor_kv = mode in ("beam", "diverse_beam") and \
-        resolve_beam_kv(decode_cfg, serving) == "ancestor"
-    fused = (mode == "beam" and use_fused_topk(model, decode_cfg, serving)
+        resolve_beam_kv(decode_cfg, serving, mesh) == "ancestor"
+    fused = (mode == "beam"
+             and use_fused_logit_topk(model, serving, mesh=mesh,
+                                      decoding_constraint=bool(decode_cfg.decoding_constraint))
              and (logits_hook is None or topk_hook is not None))
     hooked = (topk_hook if fused else logits_hook) is not None
     rows_per_study = {"beam": beam, "diverse_beam": beam // groups, "diverse_sample": 1,
@@ -336,8 +371,9 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
         batch = maybe_normalize_images(batch)
         b = batch["ids"].shape[0]
         inc = [batch["inc_ids"], batch["inc_mask"]] if with_indication else []
-        enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
-                                                batch["valid"], b, *inc)
+        with use_mesh(mesh):
+            enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
+                                                    batch["valid"], b, *inc)
         if mode == "sample" and sample_n > 1:
             enc = enc.repeat_interleave(sample_n, dim=0)
             att_mask = att_mask.repeat_interleave(sample_n, dim=0)
@@ -368,4 +404,5 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     generate_step.ancestor_kv = ancestor_kv
     generate_step.fused_topk = fused
     generate_step.schedule = schedule
+    generate_step.mesh = mesh
     return generate_step

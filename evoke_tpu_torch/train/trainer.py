@@ -26,6 +26,15 @@
 
 A trainer without a ``TrainState`` (the test task) restores only the
 model's weights from a slot.
+
+``mesh`` (a pure-dp ``core/mesh.Mesh``; the device is then the rank's):
+every rank runs the trainer over the same loaders, copies its rows of each
+batch and takes the dp train step (``train/steps.make_train_step(mesh=)``:
+the global batch's step, parameters identical on every rank); eval steps
+return the global metrics and the decoded tokens are gathered before the
+metrics. Rank 0 writes the logs, metrics, predictions and checkpoints
+(every rank waits for a checkpoint; a restore is read on rank 0 and
+broadcast). As in the JAX CLI, no CLI task passes a mesh to a trainer.
 """
 
 from __future__ import annotations
@@ -42,11 +51,21 @@ from evoke_tpu_torch.core.config import EvokeConfig
 from evoke_tpu_torch.core.device import resolve_device
 from evoke_tpu_torch.core.loggers import (MetricWriter, PredictionCSV, RunLogger,
                                           append_best_record)
-from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch
+from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch, rank_view
 from evoke_tpu_torch.serve import EMPTY_REPORT, generate_stream, with_host_valid
 from evoke_tpu_torch.train.optim import build_scheduler, set_lr_scale
 from evoke_tpu_torch.train.steps import (TrainState, make_eval_step, make_generate_step,
                                          make_train_step)
+
+class _Silent:
+    """The logger and metric writer of a rank other than 0."""
+
+    def info(self, msg: str) -> None:
+        pass
+
+    def write(self, record) -> None:
+        pass
+
 
 MetricsFn = Callable[[Dict[str, List[str]], Dict[str, List[str]]], Dict[str, float]]
 
@@ -75,20 +94,30 @@ def _epoch_means(sums: dict, n: int) -> Dict[str, float]:
 class BaseTrainer:
     def __init__(self, cfg: EvokeConfig, model, tokenizer, state: Optional[TrainState] = None,
                  logger: Optional[RunLogger] = None,
-                 metrics_fn: Optional[MetricsFn] = None, device="cuda"):
+                 metrics_fn: Optional[MetricsFn] = None, device="cuda", mesh=None):
         self.cfg = cfg
         self.model = model
         self.tokenizer = tokenizer
         self.state = state
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.result_dir = cfg.result_dir
         os.makedirs(self.result_dir, exist_ok=True)
-        self.logger = logger or RunLogger(os.path.join(self.result_dir,
-                                                       f"{cfg.trainer.task}.log"))
-        self.metrics = MetricWriter(os.path.join(self.result_dir, "metrics.jsonl"))
-        cfg.save(os.path.join(self.result_dir, "config.json"))  # run reproducibility
+        # the other ranks log nowhere: rank 0 writes the run's files
+        self.logger = logger or (RunLogger(os.path.join(self.result_dir,
+                                                        f"{cfg.trainer.task}.log"))
+                                 if self.main else _Silent())
+        self.metrics = (MetricWriter(os.path.join(self.result_dir, "metrics.jsonl"))
+                        if self.main else _Silent())
+        if self.main:
+            cfg.save(os.path.join(self.result_dir, "config.json"))  # run reproducibility
+        async_save = cfg.trainer.async_checkpoint and mesh is None
+        if cfg.trainer.async_checkpoint and not async_save:
+            self.logger.info("trainer.async_checkpoint is off under the dp mesh: rank 0 "
+                             "writes each checkpoint while every rank waits")
         self.ckpt = CheckpointManager(os.path.join(self.result_dir, "checkpoint"),
-                                      async_save=cfg.trainer.async_checkpoint)
+                                      async_save=async_save, mesh=mesh)
         self.metrics_fn = metrics_fn
         self.mnt_mode = cfg.monitor_mode
         self.mnt_metric = "val_" + cfg.monitor_metric
@@ -165,6 +194,8 @@ class BaseTrainer:
                 self.best_recorder["test"].update(log)
 
     def _print_best_to_file(self) -> None:
+        if not self.main:
+            return
         path = os.path.join(self.result_dir,
                             f"{self.cfg.data.data_name}_{self.cfg.trainer.task}"
                             f"_results_record.csv")
@@ -247,12 +278,14 @@ class PretrainTrainer(BaseTrainer):
                  test_loader=None, **kw):
         super().__init__(cfg, model, tokenizer, state=state, **kw)
         self.loaders = {"train": train_loader, "val": val_loader, "test": test_loader}
-        self.train_step = make_train_step(model, state.opt, cfg.trainer.seed, task="pretrain")
-        self.eval_step = make_eval_step(model)
+        self.train_step = make_train_step(model, state.opt, cfg.trainer.seed, task="pretrain",
+                                          mesh=self.mesh)
+        self.eval_step = make_eval_step(model, mesh=self.mesh)
 
     def _batches(self, loader):
         prefetch = self.cfg.data.prefetch
-        return device_prefetch(Prefetcher(loader, prefetch), self.device, prefetch)
+        return device_prefetch(Prefetcher(rank_view(loader, self.mesh), prefetch),
+                               self.device, prefetch, mesh=self.mesh)
 
     def _run_split(self, loader) -> Dict[str, float]:
         sums, n = {}, 0
@@ -295,11 +328,13 @@ class FinetuneTrainer(BaseTrainer):
         self.eval_loaders = eval_loaders
         if state is not None:
             self.step_inc, self.step_noinc = (
-                make_train_step(model, state.opt, cfg.trainer.seed, with_indication=flag)
+                make_train_step(model, state.opt, cfg.trainer.seed, with_indication=flag,
+                                mesh=self.mesh)
                 for flag in (True, False))
         self.gen_inc, self.gen_noinc = (
             make_generate_step(model, tokenizer, cfg.decode, cfg.data.max_seq_len,
-                               with_indication=flag, device=self.device, graphs=graphs)
+                               with_indication=flag, device=self.device, graphs=graphs,
+                               mesh=self.mesh)
             for flag in (True, False))
         self.pred_csv = {s: PredictionCSV(os.path.join(self.result_dir, f"{s}_prediction.csv"))
                          for s in ("val", "test")}
@@ -313,8 +348,9 @@ class FinetuneTrainer(BaseTrainer):
             if loader is None:
                 continue
             loader.set_epoch(epoch - 1)
-            for i, (batch, _) in enumerate(device_prefetch(Prefetcher(loader, prefetch),
-                                                           self.device, prefetch)):
+            batches = device_prefetch(Prefetcher(rank_view(loader, self.mesh), prefetch),
+                                      self.device, prefetch, mesh=self.mesh)
+            for i, (batch, _) in enumerate(batches):
                 metrics = step(self.state, batch)
                 _accumulate(sums, metrics)
                 n += 1
@@ -341,9 +377,10 @@ class FinetuneTrainer(BaseTrainer):
         for loader, gen in zip(self.eval_loaders[split], gens):
             if loader is None:
                 continue
-            batches = device_prefetch(with_host_valid(Prefetcher(loader, prefetch)),
-                                      self.device, prefetch)
-            for host, seqs in generate_stream(gen, batches):
+            batches = device_prefetch(
+                with_host_valid(Prefetcher(rank_view(loader, self.mesh), prefetch)),
+                self.device, prefetch, mesh=self.mesh)
+            for host, seqs in generate_stream(gen, batches, mesh=self.mesh):
                 texts = self.tokenizer.decode_batch(seqs.tolist())
                 for iid, gt, pred, ok in zip(host["_image_ids"], host["_gts"], texts,
                                              host["_valid"][: len(texts)]):
@@ -358,7 +395,7 @@ class FinetuneTrainer(BaseTrainer):
         if self.metrics_fn is not None and ids:
             metrics = self.metrics_fn({i: [g] for i, g in zip(ids, gts)},
                                       {i: [p] for i, p in zip(ids, preds)})
-        if ids:
+        if ids and self.main:
             self.pred_csv[split].update(epoch_label, ids, gts, preds, metrics)
         self.stats = {
             "reports": float(len(ids)), "decode_s": t1 - t0,

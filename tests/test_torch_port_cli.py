@@ -206,7 +206,7 @@ def test_state_dict_loader_round_trip(tmp_path):
 
 # ---- the CLI ----
 
-def test_cli_help_unknown_and_unported(dataset, capsys, tmp_path):
+def test_cli_help_unknown_and_unported(dataset, capsys, tmp_path, monkeypatch):
     assert tcli.main([]) == 0
     assert "serve" in capsys.readouterr().out
     assert tcli.main(["frobnicate"]) == 2
@@ -223,8 +223,13 @@ def test_cli_help_unknown_and_unported(dataset, capsys, tmp_path):
                                        "checkpoint", "current", "state.pt"))
     with pytest.raises(ValueError, match="decode.engine='frobnicate'"):
         tcli.main(["serve", "--device", "cpu", "--decode.engine", "frobnicate"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        tcli.main(["serve", "--device", "cpu", "--decode.serve_dp", "2"])
+    with pytest.raises(ValueError, match="decode.serve_dp=-2"):
+        tcli.main(["serve", "--device", "cpu", "--decode.serve_dp", "-2"])
+    # a serving mesh never takes more cards than are visible (JAX's create_mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        tcli.main(["serve", "--data.ann_path", ann, "--decode.serve_dp", "2"] + TINY)
     with pytest.raises(ValueError, match="Unknown config keys"):
         tcli.main(["serve", "--device", "cpu", "--model.d_modle", "8"])
 

@@ -1092,3 +1092,48 @@ class TestZoo:
                     len(gen.schedule) + loop.steps_run)
         assert torch.equal(out["cpu"], out["cuda"])
         assert out["cpu"].unique().numel() > 3
+
+
+class TestDataParallel:
+    """A real NCCL process group of size 1 in this process (the join path of
+    ``cli serve --decode.serve_dp``): ReportServer and ContinuousServer over
+    the 1-rank mesh serve, captured, what they serve on one device, with K1
+    and K2 launched as often."""
+
+    def test_one_rank_nccl_serve_equals_one_device(self, cuda_device):
+        import torch.distributed as dist
+
+        from evoke_tpu_torch.core.config import DecodeConfig
+        from evoke_tpu_torch.core.mesh import (MeshSpec, create_mesh, init_distributed,
+                                               rendezvous_file)
+        from evoke_tpu_torch.decode.continuous import ContinuousServer
+        from evoke_tpu_torch.decode.forcing import synthetic_tokenizer
+        from evoke_tpu_torch.serve import ReportServer
+
+        model = _engine_model(cuda_device, torch.float32)
+        tok = synthetic_tokenizer(_ENGINE_VOCAB, spell_ids=True)
+        batches = _engine_loader(2, 8)
+
+        def serve(mesh):
+            lineage_attention.launches = fused_logit_topk.launches = 0
+            batch = ReportServer(model, tok, DecodeConfig(beam_size=_ENGINE_BEAM),
+                                 _ENGINE_LEN, device=cuda_device, mesh=mesh)
+            recs = batch.serve(batches, with_indication=True)
+            counts = (lineage_attention.launches, fused_logit_topk.launches)
+            cont = ContinuousServer(model, tok, max_seq_len=_ENGINE_LEN, slots=8,
+                                    beam_size=_ENGINE_BEAM, seg_steps=10, device=cuda_device,
+                                    mesh=mesh)
+            crecs, _ = cont.serve(batches)
+            assert cont.loop.graphs and cont.ancestor_kv and cont.fused_topk
+            return recs, counts, crecs
+
+        one = serve(None)
+        init_distributed("nccl", rendezvous_file(), 1, 0, device="cuda")
+        try:
+            mesh = create_mesh(MeshSpec(dp=1), device="cuda")
+            assert mesh.group is not None and mesh.device == torch.device("cuda", 0)
+            got = serve(mesh)
+        finally:
+            dist.destroy_process_group()
+        assert one[1][1] > 0 and one[1][0] == 3 * one[1][1]
+        assert got == one
