@@ -214,10 +214,26 @@ Phases, in order (any failure raises and exits non-zero; nothing is skipped):
    in L2 norm in the ResNet), most parameters moved, bit-identical across
    the ranks by checksum), then the full-width bf16 finetune step at
    16 + 16 a rank: step ms, peak GiB a rank, K1 = K2 = K3 = 0;
-14. a JSON line of every ported kernel (launches: phase 4's captured run;
+14. tensor parallelism (``parallel/tp``), after phase 13, on ranks spawned
+   on the one card over gloo: two ranks at dp=1 x mp=2 run (a) the wide
+   fusion module at phase 5's layout (bf16) sharded over mp: K3 on the
+   rank's 4 of 8 heads (its launches counted), the module against the
+   one-device module within ``FUSION_TOL``, K3 on the rank's heads against
+   its plain version within ``K3_TOL``; (b) the float32 flagship's best
+   beams of 4 studies at mp=2 (eager, K1 and K2 declined) must equal one
+   device's on the same routes (agreement with its K1 + K2 path printed);
+   the bf16 flagship serves one 64-study batch eagerly: reports/s, peak
+   GiB, the rank's parameter bytes beside one device's, K1 = K2 = K3 = 0;
+   (c) the full-width bf16 finetune step at 16 + 16: step ms and peak GiB a
+   rank; then four ranks at dp=2 x mp=2 run the TINY finetune and pretrain
+   steps against the one-rank step with phase 13 (c)'s bounds, replicated
+   and gathered parameters bit-identical on every rank; (d)
+   ``evoke_tpu_torch.dryrun``'s 5 stages at 4 ranks (dp=2 x mp=2 for
+   stages 1-4) on the card;
+15. a JSON line of every ported kernel (launches: phase 4's captured run;
    ``launches_phase11``: each phase 11 path's count; ``launches_phase12``:
-   phase 12's served batch; ``launches_phase13``: each phase 13 path's), then
-   the result line.
+   phase 12's served batch; ``launches_phase13`` / ``launches_phase14``:
+   each phase 13 / 14 path's), then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -2801,6 +2817,44 @@ def dp_serve_rank(mesh, out_dir, seed):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
 
 
+def mesh_train_step(model, batch, task, mesh, seed, lr):
+    """One train step (RAdam at ``lr``, dropout on) of ``model`` under
+    ``mesh`` (None: one rank) -> (loss, name -> parameter)."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    opt = build_optimizer("RAdam", task, model, **lr)
+    step = make_train_step(model, opt, seed, with_indication=task == "finetune",
+                           task=task, mesh=mesh)
+    model.train()
+    out = step(TrainState(model, opt), batch)
+    return float(out["all_loss"]), {n: p.detach() for n, p in model.named_parameters()}
+
+
+def mesh_update_err(task, before, got, want, lr):
+    """The worst ratio of a mesh step's update's distance from the one-rank
+    update to its bound (tests/test_torch_port_parallel.py's): RAdam's
+    first step moves a weight by lr times its gradient clipped to +-0.1,
+    so 1e-3 of that outside the ResNet, 2e-2 in L2 norm relative inside
+    it (its batch-statistics BatchNorms amplify the sums' rounding);
+    and how many parameters the one-rank step moved."""
+    from evoke_tpu_torch.train.optim import param_label
+
+    worst, moved = 0.0, 0
+    for n, w in want.items():
+        d_want, d_got = w - before[n], got[n] - before[n]
+        moved += bool(d_want.abs().max() > 0)
+        err = d_got - d_want
+        ulp = 2 * torch.finfo(torch.float32).eps * w.abs()   # the step's own rounding
+        if n.startswith("visual_extractor"):
+            ratio = err.norm() / (2e-2 * d_want.norm() + ulp.norm() + 1e-30)
+        else:
+            lr_n = lr["ft_lr" if task == "finetune" and param_label(n) == "ft" else "pt_lr"]
+            ratio = (err.abs() / (1e-3 * 0.1 * lr_n + ulp)).max()
+        worst = max(worst, float(ratio))
+    return worst, moved
+
+
 def dp_train_rank(mesh, out_dir, seed):
     """Phase 13 (c), one of two ranks on the one card: the TINY float32
     finetune and pretrain steps (phase 9 (b) / 10 (b)'s models; dropout on,
@@ -2816,7 +2870,7 @@ def dp_train_rank(mesh, out_dir, seed):
     from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
     from evoke_tpu_torch.parallel.collectives import gather_objects
     from evoke_tpu_torch.params import init_params_
-    from evoke_tpu_torch.train.optim import build_optimizer, param_label
+    from evoke_tpu_torch.train.optim import build_optimizer
     from evoke_tpu_torch.train.steps import TrainState, make_train_step
 
     dev = mesh.device
@@ -2826,47 +2880,18 @@ def dp_train_rank(mesh, out_dir, seed):
     lr = dict(pt_lr=o.pt_lr, ft_lr=o.ft_lr, weight_decay=o.weight_decay)
     result = dict(rank=mesh.rank)
 
-    def one_step(model, batch, task, step_mesh):
-        opt = build_optimizer("RAdam", task, model, **lr)
-        step = make_train_step(model, opt, seed, with_indication=task == "finetune",
-                               task=task, mesh=step_mesh)
-        model.train()
-        out = step(TrainState(model, opt), batch)
-        return float(out["all_loss"]), {n: p.detach() for n, p in model.named_parameters()}
-
-    def update_err(task, before, got, want):
-        """The worst ratio of the dp update's distance from the one-rank
-        update to its bound (tests/test_torch_port_parallel.py's): RAdam's
-        first step moves a weight by lr times its gradient clipped to +-0.1,
-        so 1e-3 of that outside the ResNet, 2e-2 in L2 norm relative inside
-        it (its batch-statistics BatchNorms amplify the sums' rounding);
-        and how many parameters the one-rank step moved."""
-        worst, moved = 0.0, 0
-        for n, w in want.items():
-            d_want, d_got = w - before[n], got[n] - before[n]
-            moved += bool(d_want.abs().max() > 0)
-            err = d_got - d_want
-            ulp = 2 * torch.finfo(torch.float32).eps * w.abs()   # the step's own rounding
-            if n.startswith("visual_extractor"):
-                ratio = err.norm() / (2e-2 * d_want.norm() + ulp.norm() + 1e-30)
-            else:
-                lr_n = lr["ft_lr" if task == "finetune" and param_label(n) == "ft" else "pt_lr"]
-                ratio = (err.abs() / (1e-3 * 0.1 * lr_n + ulp)).max()
-            worst = max(worst, float(ratio))
-        return worst, moved
-
     rng = np.random.default_rng(seed + 11)
     bt = example_batch(rng, 2, 2, 64, 16, 50)
     bt["mask"][1, 12:] = 0
     for task in ("finetune", "pretrain"):
         model = tiny_train_model(seed=seed, task=task).to(dev)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        want_loss, want = one_step(copy.deepcopy(model), {
-            k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, task, None)
-        loss, got = one_step(model, shard_batch(bt, mesh), task, mesh)
+        want_loss, want = mesh_train_step(copy.deepcopy(model), {
+            k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, task, None, seed, lr)
+        loss, got = mesh_train_step(model, shard_batch(bt, mesh), task, mesh, seed, lr)
         loss_err = abs(loss - want_loss) / abs(want_loss)
         param_err = max((got[n] - want[n]).abs().max().item() for n in want)
-        upd_ratio, moved = update_err(task, before, got, want)
+        upd_ratio, moved = mesh_update_err(task, before, got, want, lr)
         digest = hashlib.sha256(b"".join(got[n].cpu().numpy().tobytes()
                                          for n in sorted(got))).hexdigest()
         digests = gather_objects(digest, mesh)
@@ -2960,6 +2985,341 @@ def dp_two_ranks(seed, smi):
     sums = [[r[t]["checksum"] for r in out["dp_train"]] for t in ("finetune", "pretrain")]
     if any(len(set(c)) != 1 for c in sums):
         raise AssertionError(f"phase 13 (c): parameter checksums differ across ranks: {sums}")
+    return out
+
+
+# ---- phase 14: tensor parallelism over torch.distributed ----
+
+# the ranks share the one card over gloo, as phase 13's do
+TP_DEVICES = ("cuda:0",) * 4
+
+
+def tp_param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tp_fusion_rank(mesh, seed):
+    """Phase 14 (a), one of two ranks (mp=2): the wide fusion module at
+    phase 5's layout (d 2048, wide qkv, 8 heads, T 50, 64 anchors / 128
+    images, bf16), kernel route, sharded over mp: K3 runs on the rank's 4
+    heads (its launches counted), the module's output against the one-device
+    module's, and K3 on the rank's heads against its plain version."""
+    from evoke_tpu_torch.models.fusion import BatchedCrossViewAttention, same_study_matrix
+    from evoke_tpu_torch.ops.fusion_attention import (masked_cross_view_attention,
+                                                      masked_cross_view_attention_plain)
+    from evoke_tpu_torch.parallel.tp import shard_params_tp
+    from evoke_tpu_torch.params import init_params_
+
+    dev, dtype = mesh.device, torch.bfloat16
+    d, heads, t, n_anchor = 2048, 8, 50, 64
+    pids_np, attend_np = partner_layout(n_anchor)
+    pids = torch.as_tensor(pids_np, device=dev)
+    valid = torch.ones(len(pids_np), dtype=torch.bool, device=dev)
+    study = same_study_matrix(pids[:n_anchor], pids, valid[:n_anchor], valid)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 14)
+    x = torch.randn(len(pids_np), t, d, generator=g, device=dev).to(dtype)
+    with torch.device(dev):
+        m = init_params_(BatchedCrossViewAttention(d, heads, wide_qkv=True), seed)
+        tpm = BatchedCrossViewAttention(d, heads, wide_qkv=True, use_pallas=True, dtype=dtype)
+    tpm.load_state_dict(m.state_dict())
+    del m
+    with torch.inference_mode():
+        one = tpm(x[:n_anchor], x, study).float()       # one device (a comparison launch)
+    shard_params_tp(tpm, mesh)
+    masked_cross_view_attention.launches = 0
+    with torch.inference_mode():
+        got = tpm(x[:n_anchor], x, study).float()
+    torch.cuda.synchronize()
+    n_k3 = masked_cross_view_attention.launches
+    err = (got - one).abs().max().item()
+    # K3 on this rank's heads, as the module calls it, against its plain version
+    h = tpm.num_heads
+    with torch.inference_mode():
+        q = tpm.fc_q(x[:n_anchor]).reshape(n_anchor, t, h, d).transpose(1, 2)
+        k = tpm.fc_k(x).reshape(-1, h, d).transpose(0, 1)
+        v = tpm.fc_v(x).reshape(-1, h, d).transpose(0, 1)
+        attend = torch.as_tensor(attend_np, device=dev)
+        kern = masked_cross_view_attention(q, k, v, attend, t)
+        plain = masked_cross_view_attention_plain(q, k, v, attend, t)
+    torch.cuda.synchronize()
+    k3_err = (kern.float() - plain.float()).abs().max().item()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
+    ms = time_ms(lambda: masked_cross_view_attention(q, k, v, attend, t), flush, reps=5,
+                 device_only=True)
+    plain_ms = time_ms(lambda: masked_cross_view_attention_plain(q, k, v, attend, t), flush,
+                       reps=3, device_only=True)
+    if h != heads // mesh.mp or n_k3 < 1:
+        raise AssertionError(f"phase 14 (a) rank {mesh.rank}: {h} heads a rank, K3 launched "
+                             f"{n_k3} times")
+    if not err <= FUSION_TOL[dtype] or not k3_err <= K3_TOL[dtype]:
+        raise AssertionError(f"phase 14 (a) rank {mesh.rank}: module vs one device {err} "
+                             f"(tol {FUSION_TOL[dtype]}), K3 vs plain {k3_err} "
+                             f"(tol {K3_TOL[dtype]})")
+    return dict(heads=h, launches_fusion_attention=n_k3, module_vs_one_device=err,
+                k3_vs_plain=k3_err, k3_device_only_ms=ms, plain_device_only_ms=plain_ms)
+
+
+def tp_serve_rank(mesh, seed):
+    """Phase 14 (b), one of two ranks (mp=2): the float32 flagship's best
+    beams of 4 studies at mp=2 (eager: the steps hold mp collectives; K1 and
+    K2 declined) against one device's decode on the same routes (rank 0
+    decodes it before sharding); then the
+    bf16 flagship sharded at mp=2 serves one 64-study batch through
+    ``ReportServer(mesh=)``, eager, after a warm-up: reports/s, peak GiB, the
+    rank's parameter bytes beside one device's, K1 = K2 = K3 = 0."""
+    from evoke_tpu_torch.core.config import DecodeConfig
+    from evoke_tpu_torch.core.mesh import shard_batch
+    from evoke_tpu_torch.decode.forcing import synthetic_tokenizer
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.parallel.tp import shard_params_tp
+    from evoke_tpu_torch.serve import ReportServer
+    from evoke_tpu_torch.train.steps import make_generate_step
+
+    dev = mesh.device
+    tok = synthetic_tokenizer(30000)
+    vocab = tok.get_vocab_size()
+    cfg = DecodeConfig(beam_size=3, suppress_unk=True)
+    rng = np.random.default_rng(seed + 14)
+    small = example_batch(rng, 4, 4, 224, 100, vocab)
+    model32 = flagship(vocab, torch.float32, dev, seed)
+    want = kernels = None
+    if mesh.rank == 0:
+        # one device's eval path (reorder caches, the unfused tail: the routes the
+        # mp=2 path takes), and its serving path through K1 and K2 for agreement
+        dev_small = {k: torch.as_tensor(v).to(dev) for k, v in small.items()}
+        want, kernels = (make_generate_step(model32, tok, cfg, 100, with_indication=True,
+                                            serving=serving, device=dev)(dev_small).cpu()
+                         for serving in (False, True))
+    shard_params_tp(model32, mesh)
+    gen = make_generate_step(model32, tok, cfg, 100, with_indication=True, serving=True,
+                             device=dev, mesh=mesh)
+    seqs = gen(shard_batch(small, mesh)).cpu()
+    same = agree = None
+    if want is not None:
+        same = bool(torch.equal(seqs, want))
+        agree = float((seqs == kernels).float().mean())
+    if same is False:
+        raise AssertionError(f"phase 14 (b): mp=2 float32 best beams differ from one device's "
+                             f"in {int((seqs != want).sum())} tokens")
+    if gen.captured or gen.ancestor_kv or gen.fused_topk:
+        raise AssertionError("phase 14 (b): the mp=2 decode captured its steps or kept K1 / K2")
+    del gen, model32
+    gc_cuda()
+    model = flagship(vocab, torch.bfloat16, dev, seed)
+    one_bytes = tp_param_bytes(model)
+    shard_params_tp(model, mesh)
+    rank_bytes = tp_param_bytes(model)
+    gc_cuda()
+    batch = example_batch(rng, 64, 64, 224, 100, vocab)
+    batch["_image_ids"] = [f"tp_s{j}" for j in range(64)]
+    server = ReportServer(model, tok, cfg, max_seq_len=100, depth=2, mesh=mesh)
+    server.serve([batch], with_indication=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    masked_cross_view_attention.launches = 0
+    with StepCount() as steps:
+        records = server.serve([batch], with_indication=True)
+        torch.cuda.synchronize()
+    n_k1, n_k2 = read_launches()
+    n_k3 = masked_cross_view_attention.launches
+    if len(records) != 64 or not all(r["report"].strip() for r in records):
+        raise AssertionError(f"phase 14 (b) rank {mesh.rank}: {len(records)} records")
+    if (n_k1, n_k2, n_k3) != (0, 0, 0) or server.stats["captured"] or not steps.steps:
+        raise AssertionError(f"phase 14 (b) rank {mesh.rank}: K1/K2/K3 {(n_k1, n_k2, n_k3)}, "
+                             f"captured {server.stats['captured']}, {steps.steps} steps")
+    return dict(float32_best_beams_equal=same, float32_agreement_with_kernels=agree,
+                studies=64, steps=steps.steps,
+                launches_lineage=n_k1, launches_fused=n_k2, launches_fusion_attention=n_k3,
+                captured=server.stats["captured"], reports_per_s=server.stats["reports_per_s"],
+                latency_p50_s=server.stats["batch_latency_p50_s"],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                param_bytes_rank=rank_bytes, param_bytes_one_device=one_bytes,
+                param_share=rank_bytes / one_bytes)
+
+
+def tp_full_train_rank(mesh, seed):
+    """Phase 14 (c), full width, one of two ranks (mp=2): the bf16 flagship
+    finetune step (RAdam, batch 16 + 16, the config's optimizer) sharded at
+    mp=2: ms a step and peak GiB a rank, finite losses, no K1 / K2 / K3."""
+    from evoke_tpu_torch.core.config import OptimConfig
+    from evoke_tpu_torch.core.mesh import shard_batch
+    from evoke_tpu_torch.models.finetune import FinetuneModel
+    from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
+    from evoke_tpu_torch.parallel.tp import shard_params_tp
+    from evoke_tpu_torch.params import init_params_
+    from evoke_tpu_torch.train.optim import build_optimizer
+    from evoke_tpu_torch.train.steps import TrainState, make_train_step
+
+    dev = mesh.device
+    o = OptimConfig()
+    vocab, n_anchor, image_size, seq = 30001, 16, 224, 100
+    with torch.device(dev):
+        model = FinetuneModel(vocab_size=vocab, max_seq_len=seq, dtype=torch.bfloat16)
+    init_params_(model, seed)
+    shard_params_tp(model, mesh)
+    gc_cuda()
+    opt = build_optimizer(o.optim, "finetune", model, pt_lr=o.pt_lr, ft_lr=o.ft_lr,
+                          weight_decay=o.weight_decay, grad_clip_value=o.grad_clip_value)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, seed, with_indication=True, mesh=mesh)
+    rng = np.random.default_rng(seed + 5)
+    full = example_batch(rng, n_anchor, n_anchor, image_size, seq, vocab)
+    full["images"] = rng.integers(0, 256, size=full["images"].shape, dtype=np.uint8)
+    full["mask"][:, seq * 3 // 5:] = 0
+    full["mask"][::2, seq * 2 // 5:] = 0
+    batch = shard_batch(full, mesh)
+    model.train()
+    zero_launches()
+    masked_cross_view_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        losses.append(float(step(state, batch)["lm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    kernels = read_launches() + (masked_cross_view_attention.launches,)
+    if any(kernels) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 14 (c) full width rank {mesh.rank}: K1/K2/K3 {kernels}, "
+                             f"losses {losses}")
+    return dict(rows=n_anchor, step_ms=statistics.median(times[2:]) * 1e3,
+                step_ms_all=[t * 1e3 for t in times],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=losses,
+                launches_k1_k2_k3=kernels)
+
+
+def tp_mp2_rank(mesh, out_dir, seed):
+    """Phase 14 (a), (b) and the full-width step of (c) on one of two ranks
+    (dp=1 x mp=2) sharing the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = dict(rank=mesh.rank, fusion=tp_fusion_rank(mesh, seed))
+    gc_cuda()
+    result["serve"] = tp_serve_rank(mesh, seed)
+    gc_cuda()
+    result["full_width"] = tp_full_train_rank(mesh, seed)
+    _rank_result(mesh, out_dir, "tp_mp2", result)
+
+
+def tp_tiny_train_rank(mesh, out_dir, seed):
+    """Phase 14 (c), one of four ranks (dp=2 x mp=2): the TINY float32
+    finetune and pretrain steps (phase 13 (c)'s models and bounds) sharded
+    over mp on the rank's rows against the one-rank step on the global batch;
+    replicated parameters bit-identical on every rank (a checksum), and the
+    gathered parameters too."""
+    import copy
+    import hashlib
+
+    from evoke_tpu_torch.core.config import OptimConfig
+    from evoke_tpu_torch.core.mesh import shard_batch
+    from evoke_tpu_torch.parallel.collectives import gather_objects
+    from evoke_tpu_torch.parallel.tp import full_state_dict, shard_params_tp, split_dims
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    o = OptimConfig()
+    lr = dict(pt_lr=o.pt_lr, ft_lr=o.ft_lr, weight_decay=o.weight_decay)
+    result = dict(rank=mesh.rank)
+    rng = np.random.default_rng(seed + 11)
+    bt = example_batch(rng, 2, 2, 64, 16, 50)
+    bt["mask"][1, 12:] = 0
+
+    def checksum(tensors):
+        return hashlib.sha256(b"".join(tensors[n].cpu().numpy().tobytes()
+                                       for n in sorted(tensors))).hexdigest()
+
+    for task in ("finetune", "pretrain"):
+        model = tiny_train_model(seed=seed, task=task).to(dev)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        want_loss, want = mesh_train_step(copy.deepcopy(model), {
+            k: torch.as_tensor(v).to(dev) for k, v in bt.items()}, task, None, seed, lr)
+        shard_params_tp(model, mesh)
+        loss, local = mesh_train_step(model, shard_batch(bt, mesh), task, mesh, seed, lr)
+        split = split_dims(model)
+        full = {n: t for n, t in full_state_dict(model).items() if n in want}
+        loss_err = abs(loss - want_loss) / abs(want_loss)
+        param_err = max((full[n] - want[n]).abs().max().item() for n in want)
+        upd_ratio, moved = mesh_update_err(task, before, full, want, lr)
+        sums = gather_objects((checksum({n: t for n, t in local.items() if n not in split}),
+                               checksum(full)), mesh)
+        if (loss_err > 1e-5 or param_err > DP_PARAM_TOL or upd_ratio > 1.0
+                or moved <= len(want) // 2 or len(set(sums)) != 1):
+            raise AssertionError(f"phase 14 (c) {task} rank {mesh.rank}: loss {loss} vs "
+                                 f"{want_loss} (rel {loss_err:.2e}), parameters {param_err:.2e}"
+                                 f", update error {upd_ratio:.2f} of its bound, {moved} of "
+                                 f"{len(want)} parameters moved, checksums {sums}")
+        result[task] = dict(loss=loss, loss_one_rank=want_loss, loss_rel_err=loss_err,
+                            param_max_abs_err=param_err, update_err_of_bound=upd_ratio,
+                            moved=moved, n_params=len(want), n_split=len(split),
+                            checksum=sums[0][0][:16])
+        del model
+    _rank_result(mesh, out_dir, "tp_tiny", result)
+
+
+def tp_ranks(seed, smi):
+    """Phase 14 (a)-(c): two ranks (dp=1 x mp=2) and four (dp=2 x mp=2)
+    spawned on the one card over gloo; (d) the dry run at 4 ranks there. The
+    per-rank numbers are printed here."""
+    import os
+
+    from evoke_tpu_torch import dryrun
+    from evoke_tpu_torch.core.mesh import MeshSpec, spawn
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        for name, body, spec in (("tp_mp2", tp_mp2_rank, MeshSpec(dp=1, mp=2)),
+                                 ("tp_tiny", tp_tiny_train_rank, MeshSpec(dp=2, mp=2))):
+            gc_cuda()
+            t0 = time.perf_counter()
+            spawn(body, args=(d, seed), spec=spec, devices=TP_DEVICES[:spec.n_devices],
+                  backend="gloo", init_method="file://" + os.path.join(d, f"{name}.rdzv"),
+                  timeout_s=400)
+            with open(os.path.join(d, f"{name}.json")) as f:
+                out[name] = json.load(f)
+            out[name + "_s"] = time.perf_counter() - t0
+    for r in out["tp_mp2"]:
+        a, b, c = r["fusion"], r["serve"], r["full_width"]
+        log(f"phase 14 (a) mp=2 on one card (gloo), rank {r['rank']} [{smi}]: wide fusion "
+            f"bf16 (d 2048, T 50, Q 64, B 128) on {a['heads']} of 8 heads, K3 launched "
+            f"{a['launches_fusion_attention']}x, module vs one device max_abs_err="
+            f"{a['module_vs_one_device']:.3e} (tol {FUSION_TOL[torch.bfloat16]}), K3 vs plain "
+            f"{a['k3_vs_plain']:.3e} (tol {K3_TOL[torch.bfloat16]}); K3 on 4 heads "
+            f"{a['k3_device_only_ms']:.4f} ms, plain {a['plain_device_only_ms']:.4f} ms "
+            f"(device-only; two ranks share the card)")
+        log(f"phase 14 (b) mp=2 on one card (gloo), rank {r['rank']} [{smi}]: bf16 flagship "
+            f"64 studies, {b['steps']} decode steps, eager (captured={b['captured']}), "
+            f"reports_per_s={b['reports_per_s']:.2f} (two ranks share the card and gloo goes "
+            f"through the host: information, not a speed), p50 {b['latency_p50_s']:.3f}s, "
+            f"peak_mem_gib={b['peak_mem_gib']:.2f}, parameter bytes {b['param_bytes_rank']} "
+            f"of one device's {b['param_bytes_one_device']} ({100 * b['param_share']:.1f}%), "
+            f"launches lineage={b['launches_lineage']} fused={b['launches_fused']} "
+            f"fusion_attention={b['launches_fusion_attention']}"
+            + (f"; float32 best beams of 4 studies == one device's eval path (reorder, "
+               f"unfused): {b['float32_best_beams_equal']}, token agreement with its K1 + K2 "
+               f"serving path {b['float32_agreement_with_kernels']:.4f}"
+               if r["rank"] == 0 else ""))
+        log(f"phase 14 (c) mp=2 full-width bf16 train step on one card (gloo), rank "
+            f"{r['rank']} [{smi}]: {c['rows']} + {c['rows']} studies, step_ms="
+            f"{c['step_ms']:.1f} (median of 3 after 2 warm-up), peak_mem_gib="
+            f"{c['peak_mem_gib']:.2f}, K1/K2/K3 {c['launches_k1_k2_k3']}, losses "
+            f"{[round(x, 4) for x in c['losses']]}")
+    for r in out["tp_tiny"]:
+        log(f"phase 14 (c) dp=2 x mp=2 TINY train steps on one card (gloo), rank {r['rank']} "
+            f"[{smi}]: " + "; ".join(
+                f"{t} loss {r[t]['loss']:.6f} vs one rank {r[t]['loss_one_rank']:.6f} (rel "
+                f"{r[t]['loss_rel_err']:.1e}), parameters {r[t]['param_max_abs_err']:.1e} (tol "
+                f"{DP_PARAM_TOL}), update error {r[t]['update_err_of_bound']:.3f} of its bound, "
+                f"{r[t]['moved']} of {r[t]['n_params']} moved, {r[t]['n_split']} split, "
+                f"checksum {r[t]['checksum']}" for t in ("finetune", "pretrain")))
+    t0 = time.perf_counter()
+    dryrun.dryrun(4, devices=list(TP_DEVICES), backend="gloo", timeout_s=300)
+    out["dryrun_s"] = time.perf_counter() - t0
+    log(f"phase 14 (d) dryrun 4 (dp=2 x mp=2, 4 ranks on one card, gloo) [{smi}]: 5 stages "
+        f"in {out['dryrun_s']:.1f}s")
     return out
 
 
@@ -3257,6 +3617,19 @@ def main():
         counts["dryrun 1"] = p13["dryrun"].get(key, 0)
         p13_counts[key] = counts
 
+    # ---- phase 14: tensor parallelism, two and four ranks on the one card ----
+    t0 = time.perf_counter()
+    p14 = tp_ranks(args.seed, smi)
+    log(f"phase 14 {time.perf_counter() - t0:.1f}s")
+    p14_counts = {}
+    for i, key in enumerate(("launches_lineage", "launches_fused", "launches_fusion_attention")):
+        counts = {}
+        for r in p14["tp_mp2"]:
+            counts[f"mp=2 fusion rank {r['rank']}"] = r["fusion"].get(key, 0)
+            counts[f"mp=2 serve rank {r['rank']}"] = r["serve"][key]
+            counts[f"mp=2 train rank {r['rank']}"] = r["full_width"]["launches_k1_k2_k3"][i]
+        p14_counts[key] = counts
+
     line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main1, main2, main3 = ({key: rec[key] for key in line_keys} for rec in (
         k1[(torch.bfloat16, 100, False)], k2[(torch.bfloat16, (4,), 192)],
@@ -3266,17 +3639,20 @@ def main():
              source="evoke_tpu_torch/csrc/lineage_attention.cu",
              replaces="evoke_tpu/ops/lineage_attention.py:213", launches=n_k1, **main1,
              launches_phase11=p11_k1, launches_phase12=p12["launches_lineage"],
-             launches_phase13=p13_counts["launches_lineage"]),
+             launches_phase13=p13_counts["launches_lineage"],
+             launches_phase14=p14_counts["launches_lineage"]),
         dict(name="fused_logit_topk", route="cuda",
              source="evoke_tpu_torch/csrc/fused_logit_topk.cu",
              replaces="evoke_tpu/ops/fused_logit_topk.py:147", launches=n_k2, **main2,
              launches_phase11=p11_k2, launches_phase12=p12["launches_fused"],
-             launches_phase13=p13_counts["launches_fused"]),
+             launches_phase13=p13_counts["launches_fused"],
+             launches_phase14=p14_counts["launches_fused"]),
         dict(name="masked_cross_view_attention", route="cuda",
              source="evoke_tpu_torch/csrc/fusion_attention.cu",
              replaces="evoke_tpu/ops/fusion_attention.py:86", launches=n_k3, **main3,
              launches_phase11={}, launches_phase12=p12["launches_fusion"],
-             launches_phase13=p13_counts["launches_fusion_attention"]),
+             launches_phase13=p13_counts["launches_fusion_attention"],
+             launches_phase14=p14_counts["launches_fusion_attention"]),
     ]}
     if args.out:
         detail = {
@@ -3302,7 +3678,8 @@ def main():
             "pretrain": {"train_step": pretrain_full, "card_vs_cpu": pretrain_check,
                          "losses_card_vs_cpu": losses_check, "retrieval_encode": encode,
                          "retrieval_search": search, "cli": stage1},
-            "phase11": p11, "phase12": p12, "phase13": p13, "kernels": kernels["kernels"],
+            "phase11": p11, "phase12": p12, "phase13": p13, "phase14": p14,
+            "kernels": kernels["kernels"],
             "profile": profile,
             "total_s": time.perf_counter() - t_start,
         }

@@ -24,6 +24,12 @@ The reference seeds a stage from another stage's weights with
 ``partial_restore`` loads every entry whose name and shape match and leaves
 the rest; ``partial_restore_from`` reads a slot directory or a ``torch.save``
 file of a flat state dict.
+
+A checkpoint holds full tensors whatever the mesh: under tensor parallelism
+(``parallel/tp.py``) the split parameters and their optimizer moments are
+gathered over ``mp`` before rank 0 writes, and a restore takes each rank's
+slice of the full tensors. A checkpoint written at ``dp=2 x mp=2`` restores
+into one device, and one written on one device restores at ``dp=2 x mp=2``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from evoke_tpu_torch.parallel.collectives import barrier, broadcast_, gather_objects
+from evoke_tpu_torch.parallel.tp import full_shape, gather_full, local_slice
 
 STATE_FILE = "state.pt"
 
@@ -69,10 +76,12 @@ class CheckpointManager:
     docstring). ``async_save`` writes on a background thread; ``wait()``
     joins it and raises what it raised.
 
-    ``mesh`` (a dp ``core/mesh.Mesh`` whose ranks hold identical states):
+    ``mesh`` (a ``core/mesh.Mesh`` whose dp ranks hold identical states):
     rank 0 writes and every rank waits for the write (saves are synchronous
     then); a restore reads the slot on rank 0 and broadcasts the state and
-    the meta to every rank; ``async_save`` with a mesh raises."""
+    the meta to every rank; ``async_save`` with a mesh raises. With mp > 1
+    every rank takes part in gathering the full tensors before rank 0
+    writes, and takes its slice of them at a restore."""
 
     def __init__(self, directory: str, async_save: bool = False, mesh=None):
         if async_save and mesh is not None:
@@ -103,10 +112,11 @@ class CheckpointManager:
         other slots hard-linked to it) with ``meta``."""
         names = (names,) if isinstance(names, str) else tuple(names)
         self.wait()                      # serialise in-flight saves
+        full = _full_state_dict(state)   # every mp rank gathers its split tensors
         if not self.writer:
             barrier(self.mesh)           # rank 0 is writing
             return
-        host = _to_host(state.state_dict())
+        host = _to_host(full)
         meta = dict(meta or {})
 
         def write():
@@ -147,42 +157,109 @@ class CheckpointManager:
         Returns the slot's meta."""
         self.wait()
         slot = self._slot(name)
-        meta = {}
-        if self.writer:
-            blob = torch.load(os.path.join(slot, STATE_FILE), map_location="cpu",
-                              weights_only=True)
-            if isinstance(state, torch.nn.Module):
-                state.load_state_dict({**blob["params"], **blob["buffers"]}, strict=True)
-            else:
-                state.load_state_dict(blob)
-            if os.path.exists(slot + ".meta.json"):
-                with open(slot + ".meta.json") as f:
-                    meta = json.load(f)
         if self.mesh is not None:
-            meta = _broadcast_state(state, meta, self.mesh)
+            return _restore_on_mesh(os.path.join(slot, STATE_FILE), slot + ".meta.json", state,
+                                    self.mesh, self.writer)
+        blob = torch.load(os.path.join(slot, STATE_FILE), map_location="cpu", weights_only=True)
+        if isinstance(state, torch.nn.Module):
+            state.load_state_dict({**blob["params"], **blob["buffers"]}, strict=True)
+        else:
+            state.load_state_dict(blob)
+        return _read_meta(slot + ".meta.json")
+
+
+def _read_meta(path: str) -> Dict[str, Any]:
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _model_of(state) -> torch.nn.Module:
+    return state if isinstance(state, torch.nn.Module) else state.model
+
+
+_OPT_SLOTS = ("mu", "nu", "nu_max", "acc")
+
+
+def _map_split(d, model, fn):
+    """``d`` (a module's state dict or a ``TrainState.state_dict()``) with
+    ``fn(tensors, model)`` applied to every name -> tensor mapping keyed by
+    the model's state-dict names."""
+    if "params" not in d:
+        return fn(d, model)
+    d = dict(d, params=fn(d["params"], model), buffers=fn(d["buffers"], model))
+    d["opt"] = dict(d["opt"], **{k: fn(d["opt"][k], model) for k in _OPT_SLOTS
+                                 if k in d["opt"]})
+    return d
+
+
+def _full_state_dict(state):
+    """``state.state_dict()`` with the split tensors gathered over mp."""
+    return _map_split(state.state_dict(), _model_of(state), gather_full)
+
+
+def _restore_on_mesh(path, meta_path, state, mesh, writer):
+    """Restore under a mesh: rank 0 reads the full tensors and checks them
+    against every rank's state, each is broadcast to every rank in turn, and
+    every rank keeps its slice (the whole tensor where it is replicated)."""
+    model = _model_of(state)
+    local = state.state_dict()
+    blob, meta, problem = None, {}, None
+    if writer:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        meta = _read_meta(meta_path)
+        problem = _check_full(local, blob, model)
+    meta, problem, scalars = gather_objects(
+        (meta, problem, _scalars(blob) if writer else None), mesh)[0]
+    if problem:
+        raise KeyError(f"checkpoint {path}: {problem}")
+
+    def fill(tensors, src):
+        out = {}
+        for k, t in tensors.items():
+            buf = (src[k].to(t.device, t.dtype).contiguous() if writer
+                   else torch.empty(full_shape(model, k, t.shape), dtype=t.dtype,
+                                    device=t.device))
+            broadcast_([buf], mesh)
+            out[k] = local_slice(model, k, buf)
+        return out
+
+    if "params" not in local:
+        model.load_state_dict(fill(local, {**blob["params"], **blob["buffers"]}
+                                   if writer else None), strict=True)
         return meta
-
-
-def _broadcast_state(state, meta, mesh):
-    """Rank 0's restored ``state`` (a module or a ``TrainState``: tensors and
-    counters) and ``meta`` onto every rank; returns the meta."""
-    module = state if isinstance(state, torch.nn.Module) else state.model
-    tensors = list(module.parameters()) + list(module.buffers())
-    counters = {}
-    if not isinstance(state, torch.nn.Module):
-        opt = state.opt
-        for g in opt.groups.values():
-            for key in ("master", "mu", "nu", "nu_max", "acc"):
-                tensors += list(getattr(g, key, None) or [])
-        counters = {"step": state.step, "count": opt.count, "mini_step": opt.mini_step,
-                    "lr_scale": opt.lr_scale}
-    broadcast_(tensors, mesh)
-    meta, counters = gather_objects((meta, counters), mesh)[0]
-    if counters:
-        state.step = counters["step"]
-        state.opt.count, state.opt.mini_step = counters["count"], counters["mini_step"]
-        state.opt.lr_scale = counters["lr_scale"]
+    d = dict(scalars, params=fill(local["params"], blob and blob["params"]),
+             buffers=fill(local["buffers"], blob and blob["buffers"]))
+    d["opt"] = dict(scalars["opt"], **{k: fill(local["opt"][k], blob and blob["opt"][k])
+                                       for k in _OPT_SLOTS if k in local["opt"]})
+    state.load_state_dict(d)
     return meta
+
+
+def _scalars(blob):
+    """The non-tensor entries of a ``TrainState`` checkpoint (step, the
+    optimizer's counters)."""
+    if "params" not in blob:
+        return {}
+    return {"step": blob["step"], "opt": {k: v for k, v in blob["opt"].items()
+                                          if k not in _OPT_SLOTS}}
+
+
+def _check_full(local, blob, model):
+    """What is wrong with ``blob`` as the full tensors of ``local`` (a rank's
+    state dict of ``model``), or None."""
+    pairs = ([(local, {**blob["params"], **blob["buffers"]})] if "params" not in local else
+             [(local["params"], blob["params"]), (local["buffers"], blob["buffers"])]
+             + [(local["opt"][k], blob["opt"].get(k, {})) for k in _OPT_SLOTS
+                if k in local["opt"]])
+    for want, have in pairs:
+        for k, t in want.items():
+            shape = full_shape(model, k, t.shape)
+            if k not in have or tuple(have[k].shape) != shape:
+                return (f"{k}: {tuple(have[k].shape) if k in have else 'missing'}, the mesh "
+                        f"needs {shape} in full")
+    return None
 
 
 def _write_json(obj, path: str) -> None:
@@ -222,8 +299,10 @@ def partial_restore(source: Mapping[str, object], module: torch.nn.Module,
     merged = {}
     for key, tgt in target.items():
         src = source.get(key)
-        if src is not None and tuple(np.shape(src)) == tuple(tgt.shape):
-            merged[key] = torch.as_tensor(np.asarray(src) if not torch.is_tensor(src) else src)
+        # a tensor-parallel module takes its slice of the full tensor
+        if src is not None and tuple(np.shape(src)) == full_shape(module, key, tgt.shape):
+            merged[key] = local_slice(module, key, torch.as_tensor(
+                np.asarray(src) if not torch.is_tensor(src) else src))
     module.load_state_dict(merged, strict=False)
     if opt is not None:
         opt.load_masters({k: v.float() for k, v in merged.items()})

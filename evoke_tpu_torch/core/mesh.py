@@ -1,4 +1,4 @@
-"""The data-parallel mesh over ``torch.distributed`` (port of
+"""The dp x mp mesh over ``torch.distributed`` (port of
 evoke_tpu/core/mesh.py).
 
 The reference's only multi-device strategy is single-process
@@ -15,11 +15,16 @@ one-device run computes on the global batch.
 ``use_mesh(mesh)`` makes a mesh active for the model code that needs it
 (BatchNorm statistics, dropout masks, the fusion gather, the losses); the
 steps and servers built with ``mesh=`` enter it around their model calls.
-The decode loops need no collective, so none runs inside a CUDA graph.
+The decode loops of a pure-dp mesh need no collective, so none runs inside
+a CUDA graph.
 
-Only pure data parallelism is ported: ``MeshSpec(mp > 1)`` raises (tensor
-parallelism is ROADMAP A13b). NCCL carries CUDA tensors, gloo the CPU's;
-ranks share a card only when the caller lists the devices explicitly.
+``MeshSpec(dp, mp)`` lays global rank ``r`` at ``(dp_idx, mp_idx) = (r // mp,
+r % mp)``, JAX's ``devices.reshape(dp, mp)``: the ``mp`` ranks of one dp
+group hold the same rows, and each holds its slice of the tensor-parallel
+parameters (``parallel/tp.py``). The batch collectives run over the rank's
+``dp_group``, the tensor-parallel ones over its ``mp_group``; ``group`` is
+the world (checkpoints, barriers). NCCL carries CUDA tensors, gloo the
+CPU's; ranks share a card only when the caller lists the devices explicitly.
 """
 
 from __future__ import annotations
@@ -46,12 +51,10 @@ class MeshSpec:
     mp: int = 1
 
     def __post_init__(self):
-        if self.mp != 1:
-            raise NotImplementedError(
-                f"MeshSpec(mp={self.mp}): tensor parallelism is not ported yet (ROADMAP "
-                "A13b); the port runs pure data parallelism (mp=1)")
         if self.dp < 1:
             raise ValueError(f"MeshSpec(dp={self.dp}): dp must be >= 1")
+        if self.mp < 1:
+            raise ValueError(f"MeshSpec(mp={self.mp}): mp must be >= 1")
 
     @property
     def n_devices(self) -> int:
@@ -60,10 +63,15 @@ class MeshSpec:
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a pure-dp mesh: ``rank`` owns rows
-    ``[rank * n / dp, (rank + 1) * n / dp)`` of every sharded leading dim.
-    ``group`` is the process group (None for a one-rank mesh without
-    ``torch.distributed``, where every collective is the identity)."""
+    """One rank's view of a dp x mp mesh: global ``rank`` sits at
+    ``(dp_rank, mp_rank) = (rank // mp, rank % mp)`` and owns rows
+    ``[dp_rank * n / dp, (dp_rank + 1) * n / dp)`` of every sharded leading
+    dim. ``group`` is the world's process group, ``dp_group`` the ranks of
+    this rank's mp index (the batch collectives), ``mp_group`` the ranks of
+    its dp index (the tensor-parallel collectives). Without
+    ``torch.distributed`` all are None; with it, ``mp_group`` is None at
+    mp == 1 and ``dp_group`` at dp == 1 < mp. Every collective over a
+    missing group is the identity."""
 
     dp: int
     mp: int
@@ -71,18 +79,28 @@ class Mesh:
     world_size: int
     device: torch.device
     group: Any = None
+    dp_group: Any = None
+    mp_group: Any = None
 
     @property
     def shape(self):
         """The JAX mesh's axis sizes, for the policies that read them."""
         return {"dp": self.dp, "mp": self.mp}
 
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def mp_rank(self) -> int:
+        return self.rank % self.mp
+
     def rows(self, n: int) -> slice:
         """This rank's block of a leading dim of ``n`` (``n % dp == 0``)."""
         if n % self.dp:
             raise ValueError(f"leading dim {n} is not divisible by dp={self.dp}")
         k = n // self.dp
-        return slice(self.rank * k, (self.rank + 1) * k)
+        return slice(self.dp_rank * k, (self.dp_rank + 1) * k)
 
 
 _ACTIVE: ContextVar = ContextVar("evoke_torch_mesh", default=None)
@@ -161,8 +179,8 @@ def create_mesh(spec: Optional[MeshSpec] = None, device="cuda",
                 devices: Optional[Sequence] = None) -> Mesh:
     """This rank's ``Mesh`` over the default process group.
 
-    ``spec=None`` takes every rank of the group on the dp axis. ``device``:
-    ``cuda`` gives rank r ``cuda:r`` (a spec larger than the visible cards
+    ``spec=None`` takes every rank of the group on the dp axis; ``dp * mp``
+    must equal the group's size. ``device``: ``cuda`` gives rank r ``cuda:r`` (a spec larger than the visible cards
     raises ``ValueError``, as JAX's does); ``cpu`` gives every rank the CPU.
     ``devices`` lists each rank's device explicitly (ranks may then share a
     card). Without ``torch.distributed`` initialised only a one-rank mesh
@@ -172,9 +190,9 @@ def create_mesh(spec: Optional[MeshSpec] = None, device="cuda",
     if spec is None:
         spec = MeshSpec(dp=world)
     check_devices(spec, device, devices)
-    if spec.dp != world:
-        raise ValueError(f"mesh {spec} needs one process per rank: the process group has "
-                         f"{world}")
+    if spec.n_devices != world:
+        raise ValueError(f"mesh {spec} needs one process per rank ({spec.n_devices}): the "
+                         f"process group has {world}")
     if devices is not None:
         dev = torch.device(devices[rank])
     elif torch.device(device).type == "cuda":
@@ -187,7 +205,34 @@ def create_mesh(spec: Optional[MeshSpec] = None, device="cuda",
         resolve_device(dev)
         torch.cuda.set_device(dev)
     group = dist.group.WORLD if dist.is_initialized() else None
-    return Mesh(dp=spec.dp, mp=spec.mp, rank=rank, world_size=world, device=dev, group=group)
+    dp_group, mp_group = _axis_groups(spec, rank) if group is not None else (None, None)
+    return Mesh(dp=spec.dp, mp=spec.mp, rank=rank, world_size=world, device=dev, group=group,
+                dp_group=dp_group, mp_group=mp_group)
+
+
+def _axis_groups(spec: MeshSpec, rank: int):
+    """(dp_group, mp_group) of ``rank``: the world where an axis spans it (a
+    pure-dp mesh's dp axis, at any size, as before tensor parallelism), None
+    for an axis of one rank beside the other, else a new group. Every rank
+    creates every group, in one order, as ``dist.new_group`` requires."""
+    dp, mp = spec.dp, spec.mp
+    world = dist.group.WORLD
+
+    def groups(members):
+        mine = None
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        return mine
+
+    if mp == 1:
+        return world, None
+    if dp == 1:
+        return None, world
+    dp_group = groups([[d * mp + m for d in range(dp)] for m in range(mp)])
+    mp_group = groups([[d * mp + m for m in range(mp)] for d in range(dp)])
+    return dp_group, mp_group
 
 
 def _leaf_rows(x, mesh: Mesh, allow_replicate: bool):
@@ -243,11 +288,12 @@ def rendezvous_file() -> str:
     return "file://" + os.path.join(tempfile.mkdtemp(prefix="evoke_rdzv_"), "rendezvous")
 
 
-def _rank_main(rank, fn, world_size, backend, init_method, device, devices, args, timeout_s):
+def _rank_main(rank, fn, spec, backend, init_method, device, devices, args, timeout_s):
+    world_size = spec.n_devices
     init_distributed(backend, init_method, world_size, rank, device=device,
                      timeout_s=timeout_s)
     try:
-        fn(create_mesh(MeshSpec(dp=world_size), device=device, devices=devices), *args)
+        fn(create_mesh(spec, device=device, devices=devices), *args)
         dist.barrier()
     except BaseException:
         # the caller's exception names one failed rank: print each rank's own
@@ -262,11 +308,13 @@ def _rank_main(rank, fn, world_size, backend, init_method, device, devices, args
         dist.destroy_process_group()
 
 
-def spawn(fn, world_size: int, args: tuple = (), *, device="cuda", devices=None,
-          backend: Optional[str] = None, init_method: Optional[str] = None,
-          timeout_s: Optional[float] = None) -> None:
+def spawn(fn, world_size: Optional[int] = None, args: tuple = (), *, spec=None,
+          device="cuda", devices=None, backend: Optional[str] = None,
+          init_method: Optional[str] = None, timeout_s: Optional[float] = None) -> None:
     """Run ``fn(mesh, *args)`` in ``world_size`` new processes, one per rank
-    (``fn`` must be importable by name: the processes are spawned). The group
+    (``fn`` must be importable by name: the processes are spawned), over
+    ``spec`` (a ``MeshSpec``; None: ``MeshSpec(dp=world_size)``; given, its
+    ``dp * mp`` ranks are spawned and ``world_size`` may be left out). The group
     is NCCL on CUDA (rank r on ``cuda:r``; more ranks than visible cards
     raise ``ValueError``), gloo with ``device="cpu"``, unless ``backend``
     says otherwise; ``devices`` lists each rank's device (two ranks on one
@@ -277,15 +325,20 @@ def spawn(fn, world_size: int, args: tuple = (), *, device="cuda", devices=None,
     fails; returns when every rank is done."""
     import torch.multiprocessing as mp
 
+    if spec is None:
+        spec = MeshSpec(dp=world_size)
+    elif world_size is not None and world_size != spec.n_devices:
+        raise ValueError(f"spawn: world_size {world_size} != {spec}'s {spec.n_devices} ranks")
+    world_size = spec.n_devices
     if devices is None:
-        check_devices(MeshSpec(dp=world_size), device)
+        check_devices(spec, device)
     if backend is None:
         kind = torch.device(devices[0] if devices else device).type
         backend = "nccl" if kind == "cuda" else "gloo"
     own = init_method is None
     init_method = rendezvous_file() if own else init_method
     try:
-        ctx = mp.start_processes(_rank_main, args=(fn, world_size, backend, init_method,
+        ctx = mp.start_processes(_rank_main, args=(fn, spec, backend, init_method,
                                                    device, devices, tuple(args), timeout_s),
                                  nprocs=world_size, join=False, start_method="spawn")
         deadline = None if timeout_s is None else time.monotonic() + timeout_s

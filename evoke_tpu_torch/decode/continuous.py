@@ -452,7 +452,12 @@ class ContinuousServer:
     at its rows); the encoder gathers the visual features across ranks, one
     gather per loader batch in loader order on every rank. A study's report
     does not depend on its slot, so the reports are the one-device engine's;
-    they are gathered from every rank at the end, in loader order."""
+    they are gathered from every rank at the end, in loader order. Under a
+    dp x mp mesh the model is sharded over mp (``parallel/tp.py``): the
+    ring caches hold the rank's ``D / mp``, K1 and K2 are declined (reorder
+    ring caches, the unfused tail), the steps hold mp collectives and run
+    eagerly (``graphs=True`` raises; ``stats["captured"]`` says which), and
+    the records are gathered from the ``mp_rank`` 0 rank of each dp group."""
 
     def __init__(self, model, tokenizer, *, max_seq_len: int = 100, slots: int = 64,
                  beam_size: int = 3, seg_steps: int = 10, dispatch_segs: int = 4,
@@ -477,11 +482,17 @@ class ContinuousServer:
         from evoke_tpu_torch.core.device import resolve_device
         from evoke_tpu_torch.ops.fused_logit_topk import use_fused_logit_topk
         from evoke_tpu_torch.ops.sharding import check_divisible
-        from evoke_tpu_torch.train.steps import resolve_beam_kv
+        from evoke_tpu_torch.train.steps import check_tp, resolve_beam_kv
 
         self.mesh = mesh
         if mesh is not None:
             check_divisible(slots, mesh, "decode.slots")
+            check_tp(model, mesh)
+            if mesh.mp > 1:
+                if graphs:
+                    raise ValueError(f"graphs=True with mp={mesh.mp}: the decode steps hold "
+                                     "mp collectives, which are not captured (ROADMAP C9)")
+                graphs = False
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.ancestor_kv = resolve_beam_kv(SimpleNamespace(beam_kv=beam_kv),
                                            serving=True, mesh=mesh) == "ancestor"
@@ -520,6 +531,7 @@ class ContinuousServer:
             suppress_ids=() if fused else suppress, fused_topk=fused,
             dispatch_segs=self.dispatch_segs, graphs=graphs)
         self.loop: Optional[ContinuousLoop] = None
+        self.captured = self.device.type == "cuda" and graphs is not False
         self.stats: Dict[str, float] = {}
 
     @torch.inference_mode()
@@ -546,7 +558,8 @@ class ContinuousServer:
         n = self.slots * self.k
         p_len = pack["att_mask"].shape[1]
         cross = pack["cross_k"][0]
-        zeros_enc = cross.new_zeros((self.slots, p_len, cross.shape[-1]))
+        # the encoder's width (the cross K / V hold D / mp under split heads)
+        zeros_enc = cross.new_zeros((self.slots, p_len, self.model.d_model))
         dec0 = self.model.init_decode_state(zeros_enc, n, self.max_len)
         if self.ancestor_kv:
             # lineage table over ring slots: anc[s, j, t'] = the physical beam row
@@ -753,7 +766,8 @@ class ContinuousServer:
             # every rank's records, in loader order; the slowest rank's times
             from evoke_tpu_torch.parallel.collectives import gather_objects
 
-            parts = gather_objects((records, wall, drain), mesh)
+            # the mp ranks of a dp group hold the same records: one of them counts
+            parts = gather_objects((records, wall, drain), mesh)[::mesh.mp]
             records = sorted((r for recs, _, _ in parts for r in recs),
                              key=lambda r: r["_order"])
             wall = max(w for _, w, _ in parts)
@@ -767,7 +781,7 @@ class ContinuousServer:
                  "drained_reports_per_s": len(records) / drained if drained > 0 else float("nan"),
                  "segment_steps": float(steps), "issued_steps": float(loop.steps_run),
                  "encode_s": t_enc, "dispatch_s": t_disp, "wait_s": t_wait,
-                 "capture_s": loop.capture_s - captured_before}
+                 "capture_s": loop.capture_s - captured_before, "captured": self.captured}
         if latencies:
             lat = np.asarray(latencies)
             stats["study_p50_ms"] = float(np.percentile(lat, 50) * 1e3)

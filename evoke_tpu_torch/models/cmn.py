@@ -155,8 +155,8 @@ class CMNDecoder(nn.Module):
                           ) -> Dict[str, Any]:
         lmax = max_len or self.max_seq_len
         cross = [layer.prepare_cross_kv(enc) for layer in self.dec_layers]
-        zeros = lambda: _zero_caches(batch, lmax, self.d_model, self.num_layers,  # noqa: E731
-                                     self.dtype, enc.device)
+        zeros = lambda: _zero_caches(batch, lmax, self.dec_layers[0].self_attn.kv_width,  # noqa: E731
+                                     self.num_layers, self.dtype, enc.device)
         return {"cache_k": zeros(), "cache_v": zeros(),
                 "cross_k": tuple(c[0] for c in cross), "cross_v": tuple(c[1] for c in cross)}
 

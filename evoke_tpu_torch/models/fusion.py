@@ -13,6 +13,11 @@ Under a dp mesh the model gathers every rank's image features first
 (``models/finetune.py``): each rank then fuses its own block of anchors
 (``q_rows``) against the whole gathered batch, as GSPMD partitions JAX's
 global fusion.
+
+Under tensor parallelism (``parallel/tp.py``) ``fc_q/k/v`` are column-split
+along whole heads and ``fc_o`` row-split: each rank attends with its
+``num_heads / mp`` heads (the kernel route calls K3 on them), and ``fc_o``
+sums the ranks' products over ``mp`` and adds its bias once.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from evoke_tpu_torch.core.mesh import active_mesh
-from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention, dropout
+from evoke_tpu_torch.models.layers import Dense, LayerNorm, dot_attention, dropout, split_heads
 from evoke_tpu_torch.ops.fusion_attention import masked_cross_view_attention
 from evoke_tpu_torch.parallel.collectives import all_gather_batch
 
@@ -84,7 +89,10 @@ class BatchedCrossViewAttention(nn.Module):
     ``use_pallas=True`` runs the dense form through the fusion-attention
     kernel K3 (``ops/fusion_attention.py``), also when ``max_partners`` is
     set, as the JAX module does without dropout; with dropout (an ``rng``
-    and a non-zero rate) the module keeps to the plain routes, as JAX does."""
+    and a non-zero rate) the module keeps to the plain routes, as JAX does.
+    ``tp``: the mesh when the module holds this rank's heads only."""
+
+    tp = None
 
     def __init__(self, d_model: int, num_heads: int = 8, wide_qkv: bool = True,
                  use_pallas: bool = False, max_partners: Any = None, dtype=torch.float32,
@@ -100,6 +108,9 @@ class BatchedCrossViewAttention(nn.Module):
         self.fc_k = Dense(d_model, hd, dtype)
         self.fc_v = Dense(d_model, hd, dtype)
         self.fc_o = Dense(hd, d_model, dtype)
+
+    def split_heads_tp(self, mesh):
+        split_heads(self, ("fc_q", "fc_k", "fc_v"), self.fc_o, mesh)
 
     def forward(self, x_q, x_kv, study_mask, rng=None, q_offset: int = 0):
         """x_q [Q, T, D] anchors; x_kv [B, T, D] whole batch; study_mask [Q, B];
@@ -117,7 +128,8 @@ class BatchedCrossViewAttention(nn.Module):
         has_partner = study_mask.any(-1)
         use_dropout = rng is not None and self.dropout_rate > 0.0
         kernel = self.use_pallas and not use_dropout
-        drop = (lambda p: dropout(p, self.dropout_rate, rng)) if use_dropout else None
+        drop = ((lambda p: dropout(p, self.dropout_rate, rng, heads=(1, self.tp)))
+                if use_dropout else None)
         q_rows = torch.arange(q_offset, q_offset + qn, device=dev)
 
         if self.max_partners is not None and not kernel:
@@ -150,7 +162,8 @@ class BatchedCrossViewAttention(nn.Module):
             qf = q.transpose(0, 1).reshape(1, h, qn * t, dk)
             mask = attend.repeat_interleave(t, dim=1).repeat_interleave(t, dim=0)
             # the anchors' block is dim 2 here: dropout draws along it
-            drop2 = (lambda p: dropout(p, self.dropout_rate, rng, dim=2)) if drop else None
+            drop2 = ((lambda p: dropout(p, self.dropout_rate, rng, dim=2, heads=(1, self.tp)))
+                     if drop else None)
             out, _ = dot_attention(qf, k[None], v[None], mask=mask[None, None],
                                    dropout_fn=drop2)
             out = out[0].reshape(h, qn, t, dk).transpose(0, 1)

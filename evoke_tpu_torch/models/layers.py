@@ -20,6 +20,13 @@ uses batch statistics and leaves its running update pending until
 ``commit_batch_stats``. Under a dp mesh (``core/mesh.use_mesh``) both
 act on the global batch: BatchNorm sums its statistics over the ranks and
 dropout draws the global batch's mask.
+
+Tensor parallelism (``parallel/tp.py``): an attention block whose q / k / v
+are column-split and whose output projection is row-split keeps its
+attention at the rank's ``num_heads / mp`` heads (``split_heads``) when
+``mp`` divides its heads; its probabilities' dropout is drawn at all heads
+and the rank's kept, its recorded probabilities are gathered back to all
+heads, and an int8 cache's per-slot scale is the max over the full width.
 """
 
 from __future__ import annotations
@@ -33,12 +40,12 @@ import torch.nn.functional as F
 
 from evoke_tpu_torch.core.mesh import active_mesh
 from evoke_tpu_torch.ops.lineage_attention import lineage_attention, lineage_masks
-from evoke_tpu_torch.parallel.collectives import all_reduce_sum
+from evoke_tpu_torch.parallel.collectives import all_gather_mp, all_reduce_sum, max_over_mp
 
 NEG_INF = -1e9
 
 
-def dropout(x, rate: float, rng, dim: int = 0):
+def dropout(x, rate: float, rng, dim: int = 0, heads=None):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate), the keep mask drawn from the generator ``rng``
     on ``x``'s device. The identity when ``rng`` is None or ``rate`` is 0.
@@ -46,20 +53,26 @@ def dropout(x, rate: float, rng, dim: int = 0):
     Under an active dp mesh (``core/mesh.use_mesh``) ``x`` holds this rank's
     block of the global batch along ``dim``: the mask is drawn at the global
     shape and this rank's block kept, so every rank draws what the one-device
-    step draws on the global batch, whatever the world size."""
+    step draws on the global batch, whatever the world size. ``heads``
+    ``(head_dim, mesh)``: ``x`` also holds only this mp rank's block of the
+    heads along ``head_dim`` (tensor parallelism); the mask is drawn at all
+    heads and the rank's block kept."""
     if rng is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
+    shape, blocks = list(x.shape), []
     mesh = active_mesh()
     if mesh is not None and mesh.dp > 1:
-        shape = list(x.shape)
-        n = shape[dim]
-        shape[dim] = n * mesh.dp
-        u = torch.rand(shape, generator=rng, device=x.device).narrow(dim, mesh.rank * n, n)
-    else:
-        u = torch.rand(x.shape, generator=rng, device=x.device)
+        blocks.append((dim, mesh.dp_rank))
+        shape[dim] *= mesh.dp
+    if heads is not None and heads[1] is not None:
+        blocks.append((heads[0], heads[1].mp_rank))
+        shape[heads[0]] *= heads[1].mp
+    u = torch.rand(shape, generator=rng, device=x.device)
+    for d, r in blocks:
+        u = u.narrow(d, r * x.shape[d], x.shape[d])
     mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -77,6 +90,11 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=pdt))
         self.bias = nn.Parameter(torch.zeros(out_features, dtype=pdt))
+
+    @property
+    def out_width(self) -> int:
+        """The width of this module's output."""
+        return self.weight.shape[0]
 
     def forward(self, x):
         dt = self.dtype if self.dtype is not None else torch.promote_types(
@@ -252,13 +270,40 @@ def dot_attention(q, k, v, mask=None, dropout_fn=None):
     return out, probs
 
 
+def split_heads(block, qkv, out, mesh) -> None:
+    """Tensor parallelism: keep ``block``'s attention at this rank's
+    ``num_heads / mp`` heads when ``mp`` divides its heads, its projections
+    ``qkv`` (attribute names) are column-split and ``out`` is row-split; the
+    projections then pass the rank's head slice straight through, and
+    ``block.tp`` is the mesh. Otherwise the block keeps all heads (its split
+    projections gather q / k / v and slice before ``out``). ``mesh`` None
+    restores all heads (``parallel/tp.replicate_params``)."""
+    heads = getattr(block, "all_heads", block.num_heads)
+    block.all_heads = heads
+    block.num_heads, block.tp = heads, None
+    cols = [getattr(block, n) for n in qkv]
+    if (mesh is None or heads % mesh.mp or not all(hasattr(c, "gather") for c in cols)
+            or not hasattr(out, "scatter")):
+        return
+    for c in cols:
+        c.gather = False
+    out.scatter = False
+    block.num_heads, block.tp = heads // mesh.mp, mesh
+
+
 class MultiHeadAttention(nn.Module):
     """Standard MHA with separate q/k/v/o projections (layers.py:81-163).
 
     ``record``: None (the default) keeps nothing; a list collects the float32
     probabilities [B, h, Tq, Tk] of every full-width ``attend`` (the JAX
     module's ``sow("intermediates", "attn")``), for attention heatmaps
-    (``evals/heatmaps.recorded_attention``)."""
+    (``evals/heatmaps.recorded_attention``).
+
+    ``tp``: the mesh when the block holds this rank's heads only
+    (``split_heads``); ``num_heads`` is then the local count and
+    ``project_kv`` returns ``kv_width`` = the local heads' width."""
+
+    tp = None
 
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
                  dropout_rate: float = 0.0):
@@ -272,6 +317,14 @@ class MultiHeadAttention(nn.Module):
         self.wk = Dense(d_model, d_model, dtype)
         self.wv = Dense(d_model, d_model, dtype)
         self.wo = Dense(d_model, d_model, dtype)
+
+    def split_heads_tp(self, mesh):
+        split_heads(self, ("wq", "wk", "wv"), self.wo, mesh)
+
+    @property
+    def kv_width(self) -> int:
+        """The width of ``project_kv``'s k and v (a cache's width)."""
+        return self.wk.out_width
 
     def _split(self, x):
         b, t, _ = x.shape
@@ -299,11 +352,12 @@ class MultiHeadAttention(nn.Module):
             out, _ = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask)
             return self.wo(out.transpose(1, 2).reshape(bq, tq, -1))
         q = self._split(self.wq(q_in))
-        drop = None if rng is None else (lambda p: dropout(p, self.dropout_rate, rng))
+        drop = None if rng is None else (
+            lambda p: dropout(p, self.dropout_rate, rng, heads=(1, self.tp)))
         out, probs = dot_attention(q, self._split(k_proj), self._split(v_proj), mask=mask,
                                    dropout_fn=drop)
         if self.record is not None:
-            self.record.append(probs.detach())
+            self.record.append(all_gather_mp(probs.detach(), self.tp, 1))
         return self.wo(self._merge(out))
 
     def forward(self, q_in, k_in, v_in, mask=None, rng=None):
@@ -321,13 +375,16 @@ class MultiHeadAttention(nn.Module):
         return self.wo(ctx[:, None, :])
 
 
-def quantized_cache_update(cache, scale, new, pos: int) -> None:
+def quantized_cache_update(cache, scale, new, pos: int, tp=None) -> None:
     """Write ``new`` [N, 1, D] into the int8 cache [N, L, D] at slot ``pos``,
     IN PLACE, with its per-slot absmax scale into ``scale`` [N, L] float32:
     s = max(absmax(new) / 127, 1e-8), q = round(new / s) (half to even, as
-    ``jnp.round``) (layers.py:166-177)."""
+    ``jnp.round``) (layers.py:166-177). ``tp``: the mesh when ``new`` is this
+    rank's heads only; the absmax is then the max over the full width (over
+    the mp ranks), so every rank quantizes as one device does."""
     new32 = new[:, 0].float()
-    s = torch.clamp_min(new32.abs().amax(-1) / 127.0, 1e-8)              # [N]
+    amax = max_over_mp(new32.abs().amax(-1), tp)
+    s = torch.clamp_min(amax / 127.0, 1e-8)                              # [N]
     cache[:, pos] = torch.round(new32 / s[:, None]).to(torch.int8)
     scale[:, pos] = s.to(scale.dtype)
 
@@ -462,6 +519,8 @@ class BertSelfOutput(nn.Module):
 class BertAttentionBlock(nn.Module):
     """HF BertAttention: MHA (no output projection inside) + BertSelfOutput."""
 
+    tp = None
+
     def __init__(self, hidden_size: int, num_heads: int, dtype=torch.float32,
                  dropout_rate: float = 0.1):
         super().__init__()
@@ -472,6 +531,13 @@ class BertAttentionBlock(nn.Module):
         self.wk = Dense(d, d, dtype)
         self.wv = Dense(d, d, dtype)
         self.out = BertSelfOutput(d, d, dtype, dropout_rate)
+
+    def split_heads_tp(self, mesh):
+        split_heads(self, ("wq", "wk", "wv"), self.out.Dense_0, mesh)
+
+    @property
+    def kv_width(self) -> int:
+        return self.wk.out_width
 
     def project_kv(self, x):
         return self.wk(x), self.wv(x)
@@ -484,7 +550,8 @@ class BertAttentionBlock(nn.Module):
         q = self.wq(x).reshape(bk, (b // bk) * tq, h, -1).transpose(1, 2)
         k = k_proj.reshape(bk, k_proj.shape[1], h, -1).transpose(1, 2)
         v = v_proj.reshape(bk, v_proj.shape[1], h, -1).transpose(1, 2)
-        drop = None if rng is None else (lambda p: dropout(p, self.dropout_rate, rng))
+        drop = None if rng is None else (
+            lambda p: dropout(p, self.dropout_rate, rng, heads=(1, self.tp)))
         ctx, _ = dot_attention(q, k, v, mask=mask, dropout_fn=drop)
         ctx = ctx.transpose(1, 2).reshape(b, tq, -1)
         return self.out(ctx, x, rng)

@@ -17,6 +17,12 @@ returned state holds the same cache tensors): a decode state is used once.
 float32 absmax scale per slot (``cache_k_scale`` / ``cache_v_scale`` [N, L]),
 dequantized at the attention (``layers.quantized_cache_update``).
 
+Under tensor parallelism (``parallel/tp.py``) the attention blocks hold the
+rank's heads: the caches and cross K / V are ``D / mp`` wide, and a split
+``logit`` is gathered before the log-softmax (at an odd vocab, 30001, it
+stays whole). The fused logit + top-k tail reads the whole ``[V, D]``
+weight and refuses a split one.
+
 Training (``forward`` / ``decode_train``, teacher-forced over the whole
 report): the relational memory rolls over the target embeddings one step at a
 time (a Python loop where JAX scans) with its own attention dropout of 0.1;
@@ -172,8 +178,8 @@ class RMDecoderLayer(nn.Module):
             cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
         else:
             sk, sv = kv_scales
-            quantized_cache_update(cache_k, sk, k_new, pos)
-            quantized_cache_update(cache_v, sv, v_new, pos)
+            quantized_cache_update(cache_k, sk, k_new, pos, self.self_attn.tp)
+            quantized_cache_update(cache_v, sv, v_new, pos, self.self_attn.tp)
         x = x + cached_self_attention(self.self_attn, h, cache_k, cache_v, pos, anc, age=age,
                                       scale_k=sk, scale_v=sv)
         h = self.cln2(x, memory)
@@ -254,10 +260,11 @@ class RMDecoder(nn.Module):
             return tuple(torch.zeros(batch, lmax, *shape, dtype=dtype, device=enc.device)
                          for _ in range(self.num_layers))
 
+        width = self.dec_layers[0].self_attn.kv_width      # D / mp under split heads
         state = {
             "memory": self.rm.init_memory(batch, enc.device),
-            "cache_k": zeros(self.d_model),
-            "cache_v": zeros(self.d_model),
+            "cache_k": zeros(width),
+            "cache_v": zeros(width),
             "cross_k": tuple(c[0] for c in cross),
             "cross_v": tuple(c[1] for c in cross),
         }
@@ -292,6 +299,9 @@ class RMDecoder(nn.Module):
             new_v.append(cv)
         x = self.dec_norm(x)
         if return_topk:
+            if self.logit.out_width != self.logit.weight.shape[0]:
+                raise ValueError("the fused logit + top-k tail needs the whole logit weight; "
+                                 "it is split over mp (parallel/tp.py)")
             out = fused_logit_topk(x[:, 0, :].to(self.dtype).contiguous(),
                                    self.logit.weight, self.logit.bias,
                                    int(return_topk), tuple(topk_suppress))

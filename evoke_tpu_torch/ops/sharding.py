@@ -3,12 +3,14 @@
 JAX wraps each Pallas call in ``shard_map`` over 'dp', carrying the mesh to
 the kernel dispatchers through a trace-time context. The port needs no such
 context: every rank calls its kernels (K1, the lineage attention, and K2,
-the fused logit + top-k) on the rows it holds. What stays is the policy:
-the kernels ride a pure-dp mesh and decline one with mp > 1 (under tensor
-parallelism the fused tail's [D, V] weight would be split):
+the fused logit + top-k) on the rows it holds. What stays is JAX's policy:
+K1 and K2 ride a pure-dp mesh and are declined on one with mp > 1, where the
+serving path takes reorder caches and the unfused vocab tail:
 ``train/steps.resolve_beam_kv(mesh=)`` (ancestor caches, read by K1) and
 ``ops/fused_logit_topk.use_fused_logit_topk(mesh=)`` (K2) read
-``mesh_allows_kernels``. The sample batch must divide dp, which
+``mesh_allows_kernels``. K3, the fusion attention, has no mesh gate (nor
+has JAX's): under tensor parallelism each rank calls it on its own heads
+(``models/fusion.py``). The sample batch must divide dp, which
 ``core/mesh.shard_batch`` enforces by raising: nothing falls back.
 """
 

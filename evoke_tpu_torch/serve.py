@@ -34,9 +34,10 @@ def generate_stream(gen, batches: Iterable[Tuple[Dict, Dict]],
                     depth: int = 2, mesh=None) -> Iterator[Tuple[Dict, np.ndarray]]:
     """Yield ``(host_extras, seqs)`` in order, up to ``depth`` results in flight.
 
-    Under a dp ``mesh`` ``gen`` returns this rank's rows; each result is
-    gathered from every rank at dequeue (on the device), so every rank
-    yields the global batch's ``seqs``. All ranks issue their encoder
+    Under a ``mesh`` ``gen`` returns this rank's rows; each result is
+    gathered over the rank's dp group at dequeue (on the device), so every
+    rank yields the global batch's ``seqs`` (the mp ranks of a dp group
+    decode the same rows). All ranks issue their encoder
     gathers and these in one order: the same loader, the same depth.
 
     ``gen`` reuses its beam loop's buffers for every batch. What is held back
@@ -99,12 +100,14 @@ class ReportServer:
         ``train/steps.make_generate_step`` on the fused tail; it reads the
         loader batches' device entries (a ``target_len`` [n_anchor], say).
 
-        ``mesh`` (a pure-dp ``core/mesh.Mesh``; the device is then the
-        rank's): every rank iterates the same loader, copies its rows of each
-        batch, encodes its images and decodes its anchors (K1 and K2 at its
-        rows); the tokens are gathered from every rank before the records are
-        made, so every rank returns all records in loader order and the stats
-        count global reports."""
+        ``mesh`` (a ``core/mesh.Mesh``; the device is then the rank's): every
+        rank iterates the same loader, copies its rows of each batch, encodes
+        its images and decodes its anchors (K1 and K2 at its rows on a pure-dp
+        mesh); the tokens are gathered over the dp group before the records
+        are made, so every rank returns all records in loader order and the
+        stats count global reports. With mp > 1 the model is sharded over it
+        (``parallel/tp.shard_params_tp``), K1 and K2 are declined and the
+        decode steps run eagerly: ``stats["captured"]`` is False."""
         self.tokenizer = tokenizer
         self.depth = depth
         self.mesh = mesh
@@ -165,5 +168,6 @@ class ReportServer:
             "batch_latency_p90_s": (float(np.percentile(latencies, 90)) if latencies
                                     else float("nan")),
             "capture_s": sum(loop.capture_s for loop, _ in gen.loops.values()) - captured_before,
+            "captured": gen.captured,
         }
         return records

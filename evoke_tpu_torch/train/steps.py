@@ -25,6 +25,14 @@ one full-length cache phase, as JAX's do.
 package's ``make_generate_step``: they rewrite each step's candidates (for
 instance to force EOS at per-study target lengths) so that a serving engine
 can be measured on a controlled length mix with random weights.
+
+Under a dp x mp mesh (``core/mesh.py``) the model holds this rank's slice of
+the tensor-parallel parameters (``parallel/tp.shard_params_tp``, called
+before the optimizer is built): the gradients of split parameters are summed
+over ``dp_group``, those of replicated parameters over the world and divided
+by ``mp`` (so every rank's replicated parameters stay bit-identical), and the
+decode loops, whose steps hold mp collectives, run eagerly
+(``generate_step.captured`` is False).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from evoke_tpu_torch.models.layers import commit_batch_stats
 from evoke_tpu_torch.ops.fused_logit_topk import use_fused_logit_topk
 from evoke_tpu_torch.ops.sharding import mesh_allows_kernels
 from evoke_tpu_torch.parallel.collectives import all_reduce_, all_reduce_sum
+from evoke_tpu_torch.parallel.tp import split_dims
 from evoke_tpu_torch.train.optim import Optimizer
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -119,6 +128,27 @@ def _global_metrics(out, mesh) -> Dict[str, torch.Tensor]:
     return {k: total[i].to(out[k].dtype) for i, k in enumerate(keys)}
 
 
+def check_tp(model, mesh) -> None:
+    """Raise unless ``model`` is sharded for ``mesh``'s mp axis (mp > 1)."""
+    if mesh is not None and mesh.mp > 1 and getattr(model, "tp_mesh", None) is not mesh:
+        raise ValueError(f"a mesh with mp={mesh.mp} needs the model sharded over it first: "
+                         "parallel/tp.shard_params_tp(model, mesh)")
+
+
+def sum_gradients_(model, grads: Mapping[str, torch.Tensor], mesh) -> None:
+    """The global batch's gradients on every rank, in place: split
+    parameters' summed over ``dp``; replicated ones over the world, then
+    divided by ``mp`` (the ``mp`` ranks of a dp group hold equal copies in
+    exact arithmetic; the mean keeps them bit-identical)."""
+    split = split_dims(model)
+    live = {n: g for n, g in grads.items() if g is not None}
+    all_reduce_([g for n, g in live.items() if n in split], mesh, "dp")
+    repl = [g for n, g in live.items() if n not in split]
+    all_reduce_(repl, mesh, None)
+    if repl and mesh.mp > 1:
+        torch._foreach_div_(repl, float(mesh.mp))
+
+
 def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss",
                     with_indication: bool = False, task: str = "finetune",
                     dropout: bool = True, mesh=None):
@@ -139,7 +169,10 @@ def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss"
     denominators summed over ranks, dropout masks drawn at the global shape),
     each rank's loss is its share of the global loss, the gradients are
     summed over ranks before the optimizer's chain, and the returned metrics
-    are the global ones. Every rank's parameters stay identical."""
+    are the global ones. Every rank's parameters stay identical. A mesh with
+    mp > 1 needs ``model`` sharded over it (``parallel/tp.shard_params_tp``)
+    and ``sum_gradients_`` sums the gradients by placement."""
+    check_tp(model, mesh)
     name = f"{task}-dropout"
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -152,7 +185,7 @@ def make_train_step(model, opt: Optimizer, seed: int, loss_key: str = "all_loss"
         commit_batch_stats(model)
         grads = {n: p.grad for n, p in model.named_parameters()}
         if mesh is not None:
-            all_reduce_([g for g in grads.values() if g is not None], mesh)
+            sum_gradients_(model, grads, mesh)
         opt.step(grads)
         for p in model.parameters():
             p.grad = None
@@ -167,6 +200,7 @@ def make_eval_step(model, with_indication: bool = False, mesh=None):
     ``train=False`` (running statistics, no dropout), no gradients. Under
     ``mesh`` the batch is this rank's rows and the metrics the global
     batch's."""
+    check_tp(model, mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -273,14 +307,24 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     buffers of the loop that each batch is copied into, so a hook reads the
     current batch's values under replay too.
 
-    ``mesh`` (a pure-dp ``core/mesh.Mesh``): ``batch`` holds this rank's rows
+    ``mesh`` (a ``core/mesh.Mesh``): ``batch`` holds this rank's rows
     (``core/mesh.shard_batch``; a batch that does not divide dp raises
     there). The encoder runs under ``use_mesh`` (the visual features
     gathered at the fusion) and the rank decodes its own anchors, with K1 and
     K2 at its rows; ``seqs`` are those rows (``serve.generate_stream``
-    gathers them). The loops hold no collective, so the captured graphs are
-    per rank."""
+    gathers them). On a pure-dp mesh the loops hold no collective, so the
+    captured graphs are per rank. With mp > 1 (the model sharded over it)
+    each step holds mp collectives: the loops run eagerly (``graphs=True``
+    raises; ``generate_step.captured`` says which), K1 and K2 are declined
+    by the policies, and the ``mp`` ranks of a dp group seed their samplers
+    alike, so they pick the same tokens."""
     device = resolve_device(device)
+    check_tp(model, mesh)
+    if mesh is not None and mesh.mp > 1:
+        if graphs:
+            raise ValueError(f"graphs=True with mp={mesh.mp}: the decode steps hold mp "
+                             "collectives, which are not captured (ROADMAP C9)")
+        graphs = False
     beam = int(decode_cfg.beam_size)
     groups = max(int(decode_cfg.group_size), 1)
     sample_n = max(int(getattr(decode_cfg, "sample_n", 1)), 1)
@@ -405,4 +449,5 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
     generate_step.fused_topk = fused
     generate_step.schedule = schedule
     generate_step.mesh = mesh
+    generate_step.captured = device.type == "cuda" and graphs is not False
     return generate_step

@@ -27,14 +27,18 @@
 A trainer without a ``TrainState`` (the test task) restores only the
 model's weights from a slot.
 
-``mesh`` (a pure-dp ``core/mesh.Mesh``; the device is then the rank's):
-every rank runs the trainer over the same loaders, copies its rows of each
-batch and takes the dp train step (``train/steps.make_train_step(mesh=)``:
-the global batch's step, parameters identical on every rank); eval steps
-return the global metrics and the decoded tokens are gathered before the
-metrics. Rank 0 writes the logs, metrics, predictions and checkpoints
-(every rank waits for a checkpoint; a restore is read on rank 0 and
-broadcast). As in the JAX CLI, no CLI task passes a mesh to a trainer.
+``mesh`` (a ``core/mesh.Mesh``; the device is then the rank's): every rank
+runs the trainer over the same loaders, copies its rows of each batch and
+takes the mesh's train step (``train/steps.make_train_step(mesh=)``: the
+global batch's step); eval steps return the global metrics and the decoded
+tokens are gathered over the dp group (the ``mp`` ranks of a dp group decode
+the same rows, so no study counts twice) before the metrics. With mp > 1 the
+model and its state are sharded over it (``parallel/tp.shard_params_tp``,
+before the optimizer is built) and checkpoints hold the full tensors
+(``core/checkpoint.py``). Global rank 0 writes the logs, metrics,
+predictions and checkpoints (every rank waits for a checkpoint; a restore
+is read on rank 0 and broadcast). As in the JAX CLI, no CLI task passes a
+mesh to a trainer.
 """
 
 from __future__ import annotations

@@ -88,8 +88,14 @@ def losses_and_steps(mesh, path):
     """Case (b) and (c) of test_torch_port_parallel.py on this rank."""
     from evoke_tpu_torch.core.mesh import shard_batch
 
+    from evoke_tpu_torch.core.mesh import MeshSpec, create_mesh
+
     inp = _load(path)
     out = {"contrastive": contrastive(mesh, *inp["contrastive"])}
+    try:
+        create_mesh(MeshSpec(dp=2, mp=2), device="cpu")
+    except ValueError as e:
+        out["mp_refusal"] = ("ValueError", str(e))
     fb = inp["finetune_batch"]
     sharded = shard_batch(fb, mesh)
     m = finetune_model(inp["dims"], inp["vocab"], inp["finetune_sd"])

@@ -22,9 +22,10 @@ JAX) with a time limit of its own; the JAX references run here, on the
 - a rank's ``rank_view`` of a batcher decodes only the rank's image rows
   and keeps the rest of the global batch;
 - the kernel policies under a mesh (tests/test_parallel.py:270) and the
-  refusals: ``MeshSpec(mp=2)`` names A13b, a mesh larger than the visible
-  cards raises ``ValueError`` (``spawn``'s default too), and so does an
-  asynchronous checkpoint under a mesh;
+  refusals: ``MeshSpec(dp=2, mp=2)`` in a 2-rank group raises ``ValueError``
+  (it needs 4 processes), a mesh larger than the visible cards raises
+  ``ValueError`` (``spawn``'s default too), and so does an asynchronous
+  checkpoint under a mesh;
 - ``python -m evoke_tpu_torch.dryrun 2 --device cpu`` prints its 5 stages.
 """
 
@@ -175,9 +176,10 @@ def test_kernel_policies_follow_the_mesh_shape():
     assert not use_fused_logit_topk(SimpleNamespace(decoder_kind="cmn"), True)
 
 
-def test_mesh_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tmesh.MeshSpec(dp=2, mp=2)
+def test_mesh_refusals(tmp_path, spawned):
+    for got in spawned[1]:
+        assert got["mp_refusal"] == ("ValueError", "mesh MeshSpec(dp=2, mp=2) needs one "
+                                     "process per rank (4): the process group has 2")
     with pytest.raises(ValueError, match="dp must be >= 1"):
         tmesh.MeshSpec(dp=0)
     have = torch.cuda.device_count()
