@@ -338,11 +338,10 @@ def _retrieve(cfg, model, tokenizer, ann, device) -> int:
     import torch
 
     from evoke_tpu_torch.core.checkpoint import partial_restore_from
-    from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch
     from evoke_tpu_torch.data.datasets import load_annotation
     from evoke_tpu_torch.retrieval.topk import (TopKIndex, attach_specific_knowledge,
                                                 stable_code)
-    from evoke_tpu_torch.serve import with_host_valid
+    from evoke_tpu_torch.serve import staged_batches
     from evoke_tpu_torch.train.steps import maybe_normalize_images
 
     if cfg.trainer.load:
@@ -352,8 +351,7 @@ def _retrieve(cfg, model, tokenizer, ann, device) -> int:
     def corpus(loader):
         embs, codes, ids = [], [], []
         prefetch = cfg.data.prefetch
-        for batch, host in device_prefetch(with_host_valid(Prefetcher(loader, prefetch)),
-                                           device, prefetch):
+        for batch, host in staged_batches(loader, device, prefetch):
             batch = maybe_normalize_images(batch)
             n_anchor = batch["ids"].shape[0]
             proj, _ = model.encode_images(batch["images"], batch["pids"], batch["valid"],

@@ -17,6 +17,7 @@ mesh, each rank its own rows)."""
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -25,6 +26,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from evoke_tpu_torch.core.profiling import span
 from evoke_tpu_torch.data.datasets import Example
 from evoke_tpu_torch.data.tokenizer import WordTokenizer
 from evoke_tpu_torch.data.transforms import ImageTransform, load_image
@@ -196,26 +198,30 @@ def to_device(batch, device: torch.device):
     return dev, host
 
 
-def device_prefetch(batches, device: torch.device, depth: int = 2, mesh=None):
-    """Yield (device_batch, host_extras) with up to ``depth`` copies in flight.
+def stage_batch(batch, device: torch.device, mesh=None):
+    """One loader batch -> (device tensors, host extras): ``to_device``, or
+    with a dp ``mesh`` only the rows this rank owns of every device entry
+    (``core/mesh.shard_batch``: a leading dim that does not divide dp raises)
+    on the rank's device; the host extras stay whole."""
+    if mesh is None:
+        return to_device(batch, device)
+    from evoke_tpu_torch.core.mesh import shard_batch
 
-    With a dp ``mesh`` each rank copies only the rows it owns of every
-    device entry (``core/mesh.shard_batch``: a leading dim that does not
-    divide dp raises) to its own device; the host extras stay whole. Every
-    rank must iterate the same loader, so that each sees the same number of
-    batches (the loaders pad the last one to the static shape); a rank
-    decodes only its own images when the loader is its ``rank_view``."""
-    if mesh is not None:
-        from evoke_tpu_torch.core.mesh import shard_batch
+    host = {k: v for k, v in batch.items() if k.startswith("_")}
+    data = {k: v for k, v in batch.items() if not k.startswith("_")}
+    return shard_batch(data, mesh), host
 
+
+def device_prefetch(batches, device: torch.device, depth: int = 2, mesh=None,
+                    stage=stage_batch):
+    """Yield (device_batch, host_extras) with up to ``depth`` copies in flight,
+    each batch staged by ``stage(batch, device, mesh)``. Under a dp ``mesh``
+    every rank must iterate the same loader, so that each sees the same
+    number of batches (the loaders pad the last one to the static shape); a
+    rank decodes only its own images when the loader is its ``rank_view``."""
     pending: "collections.deque" = collections.deque()
     for batch in batches:
-        if mesh is not None:
-            host = {k: v for k, v in batch.items() if k.startswith("_")}
-            data = {k: v for k, v in batch.items() if not k.startswith("_")}
-            pending.append((shard_batch(data, mesh), host))
-        else:
-            pending.append(to_device(batch, device))
+        pending.append(stage(batch, device, mesh))
         if len(pending) > depth:
             yield pending.popleft()
     while pending:
@@ -223,7 +229,9 @@ def device_prefetch(batches, device: torch.device, depth: int = 2, mesh=None):
 
 
 class Prefetcher:
-    """Background-thread prefetch of an iterable of batches."""
+    """Background-thread prefetch of an iterable of batches; each batch the
+    iterable yields is the span ``loader.next`` on that thread (its ``batch``:
+    the batch's number in this pass)."""
 
     def __init__(self, iterable, depth: int = 2):
         self.iterable = iterable
@@ -236,7 +244,12 @@ class Prefetcher:
 
         def producer():
             try:
-                for item in self.iterable:
+                it = iter(self.iterable)
+                for i in itertools.count():
+                    with span("loader.next", batch=i):
+                        item = next(it, sentinel)
+                    if item is sentinel:
+                        break
                     q.put(item)
             except BaseException as e:  # re-raised on the consumer side
                 err.append(e)

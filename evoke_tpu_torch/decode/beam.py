@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from evoke_tpu_torch.core.profiling import span
 from evoke_tpu_torch.ops.fused_logit_topk import fused_logit_topk
 from evoke_tpu_torch.ops.fused_logit_topk import topk_lowest_index as topk
 from evoke_tpu_torch.ops.lineage_attention import lineage_attention
@@ -328,15 +329,19 @@ class _StaticLoop:
         self.flag_reads = 0
         t = 0
         for i, seg_end in enumerate(segments):
-            while t < seg_end:
-                if self.graphs:
-                    self._graphs[t].replay()
-                    self._ledger.replayed(t)
-                else:
-                    self.one_step(t)
-                t += 1
-            if early_stop and i + 1 < len(segments) and self.all_finished():
-                break
+            with span("decode.phase", phase=i, steps=seg_end - t):
+                while t < seg_end:
+                    if self.graphs:
+                        self._graphs[t].replay()
+                        self._ledger.replayed(t)
+                    else:
+                        self.one_step(t)
+                    t += 1
+            if early_stop and i + 1 < len(segments):
+                with span("decode.flag_read", phase=i):
+                    finished = self.all_finished()
+                if finished:
+                    break
         self.steps_run = t
 
 

@@ -25,6 +25,14 @@ the pack's available rows and the reset flag into device scalars before each
 dispatch and copies a new pack into the pack buffers, all on the stream, so a
 dispatch already queued never sees what the next one is given. On the CPU the
 same code runs eagerly. ``ContinuousServer`` is the host side.
+
+Spans (``core/profiling``): ``serve``, ``serve.loader_wait``,
+``serve.stage`` and ``serve.records`` as in ``serve.ReportServer``;
+``continuous.encode`` (a batch's encoder, ``batch``), ``continuous.fuse``
+and ``continuous.load_pack`` (``pack``), ``continuous.dispatch``,
+``continuous.wait`` and ``continuous.harvest`` (``dispatch``); and for each
+study (``ticket``) ``study.queued`` (its batch encoded -> its admission
+dispatch) and ``study.decoding`` (-> the read of its harvest).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from evoke_tpu_torch.core.profiling import span, spans
 from evoke_tpu_torch.decode.beam import (NEG_INF, LaunchLedger, _leaves, _tree_map,
                                          advance_state, capture_graph, penalty_fn,
                                          side_stream)
@@ -585,11 +594,19 @@ class ContinuousServer:
         best_seq) is copied to pinned host memory without blocking and read in
         dispatch order. Pack consumption lives on the device (``pack_pos``),
         so dispatching ahead of the reads stays exact; the host switches packs
-        (reset_pos) once a lagged read shows the current one exhausted."""
-        from evoke_tpu_torch.data.batching import (Prefetcher, device_prefetch, rank_view,
-                                                   to_device)
-        from evoke_tpu_torch.serve import EMPTY_REPORT, checked_partners, with_host_valid
+        (reset_pos) once a lagged read shows the current one exhausted.
+        ``encode_s`` / ``dispatch_s`` / ``wait_s`` are this call's seconds in
+        the spans ``continuous.encode`` / ``.dispatch`` / ``.wait``."""
+        with span("serve"):
+            return self._serve(loader, prefetch, depth)
 
+    def _serve(self, loader, prefetch: int, depth: int):
+        from evoke_tpu_torch.data.batching import to_device
+        from evoke_tpu_torch.serve import EMPTY_REPORT, staged_batches
+
+        timed = {"encode_s": "continuous.encode", "dispatch_s": "continuous.dispatch",
+                 "wait_s": "continuous.wait"}
+        before = {key: spans.seconds(name) for key, name in timed.items()}
         captured_before = 0.0 if self.loop is None else self.loop.capture_s
         pending: deque = deque()    # fused packs not yet current
         raw: deque = deque()        # encoded loader batches awaiting fusion
@@ -600,14 +617,9 @@ class ContinuousServer:
         admit_t: Dict[int, float] = {}
         next_ticket = n_total = 0
         loader_done = False
-        t_enc = t_disp = t_wait = 0.0
-        steps = 0
+        steps = n_packs = 0
         mesh = self.mesh
-        batches = iter(device_prefetch(
-            checked_partners(with_host_valid(Prefetcher(rank_view(loader, mesh), prefetch)),
-                             self._max_partners),
-            self.device, prefetch, mesh=mesh))
-        n_batches = 0
+        batches = staged_batches(loader, self.device, prefetch, self._max_partners, mesh)
         t0 = time.perf_counter()
 
         def local(x):
@@ -616,28 +628,27 @@ class ContinuousServer:
 
         def pull_pack():
             """-> (pack, n_valid, host tickets) or None when the loader is done."""
-            nonlocal next_ticket, n_total, loader_done, t_enc, n_batches
-            t_pp = time.perf_counter()
+            nonlocal next_ticket, n_total, loader_done
             try:
                 dev, host = next(batches)
             except StopIteration:
                 loader_done = True
-                t_enc += time.perf_counter() - t_pp
                 return None
+            batch = host["_batch"]
             e_all = len(host["_image_ids"])
             ids = local(host["_image_ids"])
             gts = local(host.get("_gts"))
             e = len(ids)
             # a record's place in loader order: (batch, row of the global batch)
             row0 = 0 if mesh is None else mesh.rows(e_all).start
-            order = [(n_batches, row0 + j) for j in range(e)]
-            n_batches += 1
+            order = [(batch, row0 + j) for j in range(e)]
             valid = local(np.asarray(host["_valid"])[:e_all])
             # padded anchors must form a suffix for FIFO prefix admission
             n_valid = int(valid.sum())
             if not valid[:n_valid].all():
                 raise ValueError("padded anchors must trail the batch")
-            pack = self.encode_pack(dev)
+            with span("continuous.encode", batch=batch):
+                pack = self.encode_pack(dev)
             start = next_ticket
             tickets = np.arange(start, start + e, dtype=np.int32)
             t_submit = time.perf_counter()
@@ -647,12 +658,12 @@ class ContinuousServer:
             aux = local(host.get("_aux"))
             # pinned, non-blocking copies: a pageable one would wait for the
             # dispatches queued on the stream
-            pack.update(to_device({"ticket": tickets, "aux": (
-                np.zeros(e, np.int32) if aux is None else np.asarray(aux, np.int32))},
-                self.device)[0])
+            with span("serve.stage", batch=batch):
+                pack.update(to_device({"ticket": tickets, "aux": (
+                    np.zeros(e, np.int32) if aux is None else np.asarray(aux, np.int32))},
+                    self.device)[0])
             next_ticket += e
             n_total += n_valid
-            t_enc += time.perf_counter() - t_pp
             return pack, n_valid, tickets[:n_valid]
 
         g = self.pack_batches
@@ -662,23 +673,26 @@ class ContinuousServer:
             their tickets). Valid rows (each raw pack's prefix) are gathered to
             the front; a short group at the loader's end is padded by
             repeating its first pack, so the pack width stays g*E."""
-            take = [raw.popleft() for _ in range(min(g, len(raw)))]
-            if g == 1:
-                return take[0]
-            e = take[0][0]["att_mask"].shape[0]
-            if not all(p["att_mask"].shape[0] == e for p, _, _ in take):
-                raise ValueError("ContinuousServer.serve: every loader batch must have the "
-                                 "same padded row count (pad every batch to n_anchor), got "
-                                 f"{[p['att_mask'].shape[0] for p, _, _ in take]}")
-            packs = [p for p, _, _ in take] + [take[0][0]] * (g - len(take))
-            front = np.concatenate([np.arange(i * e, i * e + nv)
-                                    for i, (_, nv, _) in enumerate(take)])
-            perm = np.zeros(g * e, np.int64)
-            perm[:len(front)] = front
-            perm = to_device({"perm": perm}, self.device)[0]["perm"]
-            fused = {key: _tree_map(lambda *xs: torch.cat(xs, 0).index_select(0, perm),
-                                    *[p[key] for p in packs]) for key in packs[0]}
-            return fused, len(front), np.concatenate([tk for _, _, tk in take])
+            nonlocal n_packs
+            with span("continuous.fuse", pack=n_packs):
+                n_packs += 1
+                take = [raw.popleft() for _ in range(min(g, len(raw)))]
+                if g == 1:
+                    return take[0]
+                e = take[0][0]["att_mask"].shape[0]
+                if not all(p["att_mask"].shape[0] == e for p, _, _ in take):
+                    raise ValueError("ContinuousServer.serve: every loader batch must have the "
+                                     "same padded row count (pad every batch to n_anchor), got "
+                                     f"{[p['att_mask'].shape[0] for p, _, _ in take]}")
+                packs = [p for p, _, _ in take] + [take[0][0]] * (g - len(take))
+                front = np.concatenate([np.arange(i * e, i * e + nv)
+                                        for i, (_, nv, _) in enumerate(take)])
+                perm = np.zeros(g * e, np.int64)
+                perm[:len(front)] = front
+                perm = to_device({"perm": perm}, self.device)[0]["perm"]
+                fused = {key: _tree_map(lambda *xs: torch.cat(xs, 0).index_select(0, perm),
+                                        *[p[key] for p in packs]) for key in packs[0]}
+                return fused, len(front), np.concatenate([tk for _, _, tk in take])
 
         def refill_pending():
             while not loader_done and len(raw) < g * max(prefetch, 1):
@@ -700,50 +714,58 @@ class ContinuousServer:
             self._ensure_loop(cur_pack)
             loop = self.loop
             loop.init_carry()    # a serve's records do not depend on what ran before it
-            loop.load_pack(cur_pack)
-            cur_reset, cur_id = True, 0
+            cur_reset, cur_id, n_disp = True, 0, 0
+            with span("continuous.load_pack", pack=cur_id):
+                loop.load_pack(cur_pack)
             reads = _HostReads(loop, depth)
-            inflight: deque = deque()   # (read slot, pack id, avail, tickets, dispatch time)
+            # (read slot, pack id, avail, tickets, dispatch time, dispatch number)
+            inflight: deque = deque()
             # under a mesh a rank whose studies are all done goes on until the
             # loader is: every rank must pull (and gather) every batch
             while len(results) < n_total or (mesh is not None and not loader_done):
                 while len(inflight) < depth:
-                    t_d = time.perf_counter()
-                    loop.dispatch(cur_avail, cur_reset)
-                    slot = reads.issue()
+                    with span("continuous.dispatch", dispatch=n_disp):
+                        loop.dispatch(cur_avail, cur_reset)
+                        slot = reads.issue()
                     cur_reset = False
-                    t_disp += time.perf_counter() - t_d
-                    inflight.append((slot, cur_id, cur_avail, cur_tickets, time.perf_counter()))
-                slot, pack_id, avail, tickets, t_dispatched = inflight.popleft()
-                t_w = time.perf_counter()
-                metas, bests = reads.wait(slot)   # [R, B+1, 2], [R, B, L]
-                t_wait += time.perf_counter() - t_w
+                    inflight.append((slot, cur_id, cur_avail, cur_tickets, time.perf_counter(),
+                                     n_disp))
+                    n_disp += 1
+                slot, pack_id, avail, tickets, t_dispatched, d = inflight.popleft()
+                with span("continuous.wait", dispatch=d):
+                    metas, bests = reads.wait(slot)   # [R, B+1, 2], [R, B, L]
                 # only consumed dispatches count: the speculative ones still in
                 # flight at the end would inflate the steps per study
                 steps += self.seg_steps * self.dispatch_segs
-                t_now = time.perf_counter()
-                for meta_h, best in zip(metas, bests):
-                    # harvests first: a study harvested in this segment was admitted
-                    # in an earlier one (harvest -> admit -> decode)
-                    for s in np.nonzero(meta_h[:-1, 0])[0]:
-                        t = int(meta_h[s, 1])
-                        if t in meta and t not in results:   # a padded row has no meta
-                            latencies.append(t_now - meta[t].pop("_t_submit"))
-                            if t in admit_t:
-                                service.append(t_now - admit_t.pop(t))
-                            results[t] = {**meta[t], "tokens": best[s].copy()}
-                    # admissions: rows [pos - n_adm, pos) of this dispatch's pack,
-                    # stamped with the dispatch's time
-                    n_adm, pos = int(meta_h[-1, 0]), int(meta_h[-1, 1])
-                    for t in tickets[pos - n_adm:pos]:
-                        admit_t[int(t)] = t_dispatched
+                with span("continuous.harvest", dispatch=d):
+                    t_now = time.perf_counter()
+                    for meta_h, best in zip(metas, bests):
+                        # harvests first: a study harvested in this segment was
+                        # admitted in an earlier one (harvest -> admit -> decode)
+                        for s in np.nonzero(meta_h[:-1, 0])[0]:
+                            t = int(meta_h[s, 1])
+                            if t in meta and t not in results:   # a padded row has no meta
+                                t_submit = meta[t].pop("_t_submit")
+                                latencies.append(t_now - t_submit)
+                                if t in admit_t:
+                                    t_admit = admit_t.pop(t)
+                                    service.append(t_now - t_admit)
+                                    spans.record("study.queued", t_submit, t_admit, ticket=t)
+                                    spans.record("study.decoding", t_admit, t_now, ticket=t)
+                                results[t] = {**meta[t], "tokens": best[s].copy()}
+                        # admissions: rows [pos - n_adm, pos) of this dispatch's
+                        # pack, stamped with the dispatch's time
+                        n_adm, pos = int(meta_h[-1, 0]), int(meta_h[-1, 1])
+                        for t in tickets[pos - n_adm:pos]:
+                            admit_t[int(t)] = t_dispatched
                 pack_pos = int(metas[-1][-1, 1])
                 if pack_id == cur_id and pack_pos >= avail:
                     refill_pending()
                     if pending:
                         cur_pack, cur_avail, cur_tickets = pending.popleft()
-                        loop.load_pack(cur_pack)
                         cur_id += 1
+                        with span("continuous.load_pack", pack=cur_id):
+                            loop.load_pack(cur_pack)
                         cur_reset = True
                     elif cur_avail:
                         cur_avail = 0   # drain: keep the pack, admit nothing
@@ -757,11 +779,12 @@ class ContinuousServer:
             torch.cuda.synchronize(self.device)
         drain = time.perf_counter() - t0 - wall
         records: List[Dict[str, Any]] = []
-        for t in sorted(results):
-            rec = results[t]
-            text = self.tokenizer.decode([int(x) for x in rec.pop("tokens")])
-            rec["report"] = text if text.strip() else EMPTY_REPORT
-            records.append(rec)
+        with span("serve.records", studies=len(results)):
+            for t in sorted(results):
+                rec = results[t]
+                text = self.tokenizer.decode([int(x) for x in rec.pop("tokens")])
+                rec["report"] = text if text.strip() else EMPTY_REPORT
+                records.append(rec)
         if mesh is not None:
             # every rank's records, in loader order; the slowest rank's times
             from evoke_tpu_torch.parallel.collectives import gather_objects
@@ -780,7 +803,7 @@ class ContinuousServer:
                  "drain_s": drain,
                  "drained_reports_per_s": len(records) / drained if drained > 0 else float("nan"),
                  "segment_steps": float(steps), "issued_steps": float(loop.steps_run),
-                 "encode_s": t_enc, "dispatch_s": t_disp, "wait_s": t_wait,
+                 **{key: spans.seconds(name) - before[key] for key, name in timed.items()},
                  "capture_s": loop.capture_s - captured_before, "captured": self.captured}
         if latencies:
             lat = np.asarray(latencies)

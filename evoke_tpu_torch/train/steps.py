@@ -44,6 +44,7 @@ import torch
 
 from evoke_tpu_torch.core import prng
 from evoke_tpu_torch.core.device import resolve_device
+from evoke_tpu_torch.core.profiling import span
 from evoke_tpu_torch.core.mesh import use_mesh
 from evoke_tpu_torch.decode.beam import (BeamLoop, DiverseBeamLoop, DiverseSampleLoop,
                                          SampleLoop, make_sampler)
@@ -412,34 +413,36 @@ def make_generate_step(model, tokenizer, decode_cfg, max_seq_len: int,
 
     @torch.inference_mode()
     def generate_step(batch):
-        batch = maybe_normalize_images(batch)
-        b = batch["ids"].shape[0]
-        inc = [batch["inc_ids"], batch["inc_mask"]] if with_indication else []
-        with use_mesh(mesh):
-            enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
-                                                    batch["valid"], b, *inc)
-        if mode == "sample" and sample_n > 1:
-            enc = enc.repeat_interleave(sample_n, dim=0)
-            att_mask = att_mask.repeat_interleave(sample_n, dim=0)
-        state0 = model.init_decode_state(enc, b * rows_per_study, schedule[0],
-                                         **({"kv_dtype": kv} if kv and mode in (
-                                             "beam", "sample") else {}))
-        hook_batch = ({name: v for name, v in batch.items() if name != "images"}
-                      if hooked else {})
-        loop, mask, hook_bufs = loop_for(state0, att_mask, b, hook_batch)
-        mask.copy_(att_mask)
-        for name, v in hook_batch.items():
-            hook_bufs[name].copy_(v)
-        if mode in ("beam", "diverse_beam"):
-            loop.load(state0)
-            seqs = loop.run().seqs
-        else:
-            loop.load(state0, prng.stream_seed(generate_step.seed, 0, "decode-sample"))
-            seqs = loop.run()[0]
-            if mode == "sample":
-                if sample_n == 1:
-                    return seqs
-                seqs = seqs.reshape(b, sample_n, max_seq_len)
+        with span("generate.encode"):
+            batch = maybe_normalize_images(batch)
+            b = batch["ids"].shape[0]
+            inc = [batch["inc_ids"], batch["inc_mask"]] if with_indication else []
+            with use_mesh(mesh):
+                enc, att_mask = model.encode_for_decode(batch["images"], batch["pids"],
+                                                        batch["valid"], b, *inc)
+            if mode == "sample" and sample_n > 1:
+                enc = enc.repeat_interleave(sample_n, dim=0)
+                att_mask = att_mask.repeat_interleave(sample_n, dim=0)
+            state0 = model.init_decode_state(enc, b * rows_per_study, schedule[0],
+                                             **({"kv_dtype": kv} if kv and mode in (
+                                                 "beam", "sample") else {}))
+        with span("generate.decode"):
+            hook_batch = ({name: v for name, v in batch.items() if name != "images"}
+                          if hooked else {})
+            loop, mask, hook_bufs = loop_for(state0, att_mask, b, hook_batch)
+            mask.copy_(att_mask)
+            for name, v in hook_batch.items():
+                hook_bufs[name].copy_(v)
+            if mode in ("beam", "diverse_beam"):
+                loop.load(state0)
+                seqs = loop.run().seqs
+            else:
+                loop.load(state0, prng.stream_seed(generate_step.seed, 0, "decode-sample"))
+                seqs = loop.run()[0]
+        if mode == "sample":
+            if sample_n == 1:
+                return seqs
+            seqs = seqs.reshape(b, sample_n, max_seq_len)
         return seqs if all_samples else seqs[:, 0, :]
 
     generate_step.loops = loops

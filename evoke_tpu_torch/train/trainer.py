@@ -56,7 +56,7 @@ from evoke_tpu_torch.core.device import resolve_device
 from evoke_tpu_torch.core.loggers import (MetricWriter, PredictionCSV, RunLogger,
                                           append_best_record)
 from evoke_tpu_torch.data.batching import Prefetcher, device_prefetch, rank_view
-from evoke_tpu_torch.serve import EMPTY_REPORT, generate_stream, with_host_valid
+from evoke_tpu_torch.serve import EMPTY_REPORT, generate_stream, staged_batches
 from evoke_tpu_torch.train.optim import build_scheduler, set_lr_scale
 from evoke_tpu_torch.train.steps import (TrainState, make_eval_step, make_generate_step,
                                          make_train_step)
@@ -381,9 +381,7 @@ class FinetuneTrainer(BaseTrainer):
         for loader, gen in zip(self.eval_loaders[split], gens):
             if loader is None:
                 continue
-            batches = device_prefetch(
-                with_host_valid(Prefetcher(rank_view(loader, self.mesh), prefetch)),
-                self.device, prefetch, mesh=self.mesh)
+            batches = staged_batches(loader, self.device, prefetch, mesh=self.mesh)
             for host, seqs in generate_stream(gen, batches, mesh=self.mesh):
                 texts = self.tokenizer.decode_batch(seqs.tolist())
                 for iid, gt, pred, ok in zip(host["_image_ids"], host["_gts"], texts,
