@@ -11,6 +11,15 @@ Dtypes follow the JAX package, which rounds at these places (bf16 compute):
 - every other Dense rounds to bf16; caches are bf16; ``dec_norm`` returns bf16
   and so do the logits.
 
+``decode_step`` computes the nine conditional norms' memory MLPs (3 layers x
+cln1..3, a gamma and a beta MLP each, all on the same memory) as one stacked
+float32 ``addmm`` and one ``baddbmm`` (``cln_scale_shift``) over a pack of
+their weights, which ``init_decode_state`` brings up to date in place (the
+captured steps keep its addresses). The pack is a cache: the state dict,
+checkpoints and tp specs hold only the per-norm parameters. A decode step
+keeps the per-norm MLPs where a norm's ``Dense`` is split over mp, and under
+autograd (grad enabled), where the gradient must reach the parameters.
+
 Unlike JAX, ``decode_step`` writes the new K/V into the caches IN PLACE (the
 returned state holds the same cache tensors): a decode state is used once.
 ``init_decode_state(kv_dtype="int8")`` keeps the caches as int8 with a
@@ -106,16 +115,21 @@ class ConditionalLayerNorm(nn.Module):
         self.mlp_beta_0 = Dense(mem_dim, d_model, torch.float32)
         self.mlp_beta_1 = Dense(d_model, d_model, torch.float32)
 
-    def forward(self, x, memory):
+    def forward(self, x, memory, scale_shift=None):
+        """``scale_shift``: this norm's (gamma + dg, beta + db), computed
+        ahead (``RMDecoder.cln_scale_shift``); else from ``memory``."""
+        if scale_shift is None:
+            m = memory.float()
+            scale = self.gamma + self.mlp_gamma_1(F.relu(self.mlp_gamma_0(m)))
+            shift = self.beta + self.mlp_beta_1(F.relu(self.mlp_beta_0(m)))
+        else:
+            scale, shift = scale_shift
         d = x.shape[-1]
-        m = memory.float()
-        dg = self.mlp_gamma_1(F.relu(self.mlp_gamma_0(m)))
-        db = self.mlp_beta_1(F.relu(self.mlp_beta_0(m)))
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         var = ((xf - mean) ** 2).sum(-1, keepdim=True) / max(d - 1, 1)
         y = (xf - mean) / (torch.sqrt(var) + self.eps)
-        return ((self.gamma + dg) * y + (self.beta + db)).to(x.dtype)
+        return (scale * y + shift).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -166,11 +180,13 @@ class RMDecoderLayer(nn.Module):
         return self.src_attn.project_kv(enc)
 
     def step(self, x, cross_k, cross_v, cross_mask, memory, cache_k, cache_v, pos: int,
-             anc=None, age=None, kv_scales=None):
+             anc=None, age=None, kv_scales=None, cln=None):
         """x [N, 1, D]; memory [N, 1, S*D]; caches [N, L, D] written at ``pos``
         in place; anc optional [B, k, L]; age optional [N] ring ages;
-        kv_scales (scale_k, scale_v) [N, L] when the caches are int8."""
-        h = self.cln1(x, memory)
+        kv_scales (scale_k, scale_v) [N, L] when the caches are int8; cln
+        optional: cln1..3's (scale, shift) [N, 1, D], computed ahead."""
+        c1, c2, c3 = cln if cln is not None else (None, None, None)
+        h = self.cln1(x, memory, c1)
         k_new, v_new = self.self_attn.project_kv(h)
         sk = sv = None
         if kv_scales is None:
@@ -182,9 +198,9 @@ class RMDecoderLayer(nn.Module):
             quantized_cache_update(cache_v, sv, v_new, pos, self.self_attn.tp)
         x = x + cached_self_attention(self.self_attn, h, cache_k, cache_v, pos, anc, age=age,
                                       scale_k=sk, scale_v=sv)
-        h = self.cln2(x, memory)
+        h = self.cln2(x, memory, c2)
         x = x + self.src_attn.attend(h, cross_k, cross_v, mask=cross_mask)
-        h = self.cln3(x, memory)
+        h = self.cln3(x, memory, c3)
         return x + self.ff(h), cache_k, cache_v
 
 
@@ -220,6 +236,12 @@ class RMDecoder(nn.Module):
                                     dropout_rate=dropout_rate)
         self.rm = RelationalMemory(rm_num_slots, rm_d_model, rm_num_heads)
         self.logit = Dense(d_model, vocab_size + 1, dtype)
+        # the stacked CLN pack (w0, b0, w1, b1) and the parameters it was
+        # made from with their (data_ptr, version); not module state
+        self._cln_pack = None
+        self._cln_made_from = None
+        self.stacked_cln_steps = 0      # decode_step calls that used the pack
+        self.cln_pack_refreshes = 0     # times the pack was written
 
     def encode(self, att_feats, att_mask, rng=None):
         """att_feats [B, P, d_vf], att_mask [B, P] -> [B, P, d_model]."""
@@ -246,11 +268,68 @@ class RMDecoder(nn.Module):
         # upcast inside the softmax: no separate float32 copy of the logits
         return torch.log_softmax(logits, dim=-1, dtype=torch.float32)
 
+    def _cln_sources(self):
+        """(first-layer Dense, second-layer Dense, gamma or beta) of every
+        conditional norm, in the pack's order: layer-major, then cln1..3,
+        gamma before beta."""
+        return [(getattr(c, f"mlp_{g}_0"), getattr(c, f"mlp_{g}_1"), getattr(c, g))
+                for layer in self.dec_layers for c in (layer.cln1, layer.cln2, layer.cln3)
+                for g in ("gamma", "beta")]
+
+    @torch.no_grad()
+    def sync_cln_pack(self) -> None:
+        """Bring the stacked CLN pack up to date with the norms' parameters:
+        written in place when one changed (an optimizer step,
+        ``load_state_dict``, an import), so captured steps read the new
+        values; dropped while a norm's ``Dense`` is split over mp. Checks
+        each parameter's identity, address and version: a host check, no
+        device work when nothing changed."""
+        srcs = self._cln_sources()
+        mem_dim = self.rm.num_slots * self.rm.d_model
+        d, n = self.d_model, len(srcs)
+        if any(tuple(m0.weight.shape) != (d, mem_dim) or tuple(m1.weight.shape) != (d, d)
+               for m0, m1, _ in srcs):
+            self._cln_pack = self._cln_made_from = None
+            return
+        params = [p for m0, m1, v in srcs for p in (m0.weight, m0.bias, m1.weight, m1.bias, v)]
+        # an inference tensor keeps no version: such a pack is rewritten every time
+        stamps = [(p.data_ptr(), None if p.is_inference() else p._version) for p in params]
+        made = self._cln_made_from
+        if (made is not None and all(a is b for a, b in zip(made[0], params))
+                and made[1] == stamps and None not in (v for _, v in stamps)):
+            return
+        dev = params[0].device
+        pack = self._cln_pack
+        if pack is None or pack[0].device != dev:
+            with torch.inference_mode(False):
+                pack = (torch.empty(n * d, mem_dim, device=dev), torch.empty(n * d, device=dev),
+                        torch.empty(n, d, d, device=dev), torch.empty(n, 1, d, device=dev))
+        w0, b0, w1, b1 = pack
+        torch.cat([m0.weight.float() for m0, _, _ in srcs], out=w0)
+        torch.cat([m0.bias.float() for m0, _, _ in srcs], out=b0)
+        torch.stack([m1.weight.float() for _, m1, _ in srcs], out=w1)
+        torch.stack([m1.bias.float() for _, m1, _ in srcs], out=b1.view(n, d))
+        b1.view(n, d).add_(torch.stack([v.float() for _, _, v in srcs]))
+        self._cln_pack, self._cln_made_from = pack, (params, stamps)
+        self.cln_pack_refreshes += 1
+
+    def cln_scale_shift(self, mem):
+        """Every conditional norm's (gamma + dg, beta + db) from the memory
+        ``mem`` [N, S*D], in the pack's order -> [2 x 3 x layers, N, D]
+        float32: all first layers as one ``addmm`` and ReLU, all second
+        layers as one ``baddbmm`` whose bias holds gamma / beta."""
+        w0, b0, w1, b1 = self._cln_pack
+        h = torch.addmm(b0, mem.float(), w0.t()).relu_()             # [N, 2n * D]
+        return torch.baddbmm(b1, h.view(h.shape[0], w1.shape[0], -1).transpose(0, 1),
+                             w1.transpose(1, 2))
+
     def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None,
                           kv_dtype: str = "") -> Dict[str, Any]:
         """Decode carry: relational memory, per-layer self-attn KV caches
         [batch, L, D] and beam-invariant cross K/V (one row per sample).
-        ``kv_dtype="int8"``: int8 caches plus their per-slot scales."""
+        ``kv_dtype="int8"``: int8 caches plus their per-slot scales. Brings
+        the stacked CLN pack up to date (``sync_cln_pack``)."""
+        self.sync_cln_pack()
         lmax = max_len or self.max_seq_len
         cross = [layer.prepare_cross_kv(enc) for layer in self.dec_layers]
         quant = kv_dtype == "int8"
@@ -284,6 +363,12 @@ class RMDecoder(nn.Module):
         knocked down by -1000 inside it."""
         x = self.tgt_embed.at_position(tok, pos, age=age)          # [N, 1, D]
         mem = self.rm.step(x[:, 0, :], state["memory"])            # [N, S*D]
+        cln = [None] * self.num_layers
+        if self._cln_pack is not None and not torch.is_grad_enabled():
+            ss = self.cln_scale_shift(mem)[:, :, None, :]          # [6 x layers, N, 1, D]
+            cln = [tuple((ss[6 * i + 2 * j], ss[6 * i + 2 * j + 1]) for j in range(3))
+                   for i in range(self.num_layers)]
+            self.stacked_cln_steps += 1
         cross_mask = make_cross_mask(att_mask)
         anc = state.get("anc")
         quant = "cache_k_scale" in state
@@ -294,7 +379,7 @@ class RMDecoder(nn.Module):
             x, ck, cv = layer.step(x, state["cross_k"][i], state["cross_v"][i], cross_mask,
                                    mem[:, None, :], state["cache_k"][i],
                                    state["cache_v"][i], pos, anc=anc, age=age,
-                                   kv_scales=scales)
+                                   kv_scales=scales, cln=cln[i])
             new_k.append(ck)
             new_v.append(cv)
         x = self.dec_norm(x)

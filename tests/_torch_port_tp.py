@@ -240,6 +240,19 @@ def tp_cases(mesh, path):
     _save(mesh, out, d)
 
 
+def decode_logits(dec, att, att_mask, ids):
+    """The R2Gen decoder's logits at every step of a cached decode of
+    ``ids`` [N, T] (one row a sample), no grad -> (logits [T, N, V],
+    the steps that took the stacked CLN pass, whether it holds the pack)."""
+    with torch.no_grad():
+        st = dec.init_decode_state(dec.encode(att, att_mask), ids.shape[0], ids.shape[1])
+        out = []
+        for pos in range(ids.shape[1]):
+            tl, st = dec.decode_step(ids[:, pos], pos, st, att_mask, return_logits=True)
+            out.append(tl)
+    return torch.stack(out).numpy(), dec.stacked_cln_steps, dec._cln_pack is not None
+
+
 def mp_cases(mesh, path):
     """The mp=2 cases of test_torch_port_tp_spawn.py on this rank."""
     from evoke_tpu_torch.models.layers import MultiHeadAttention
@@ -253,6 +266,8 @@ def mp_cases(mesh, path):
     with torch.no_grad():
         out = {"decoder": dec(*inp["decoder_args"]).numpy(),
                "decoder_heads": [layer.self_attn.num_heads for layer in dec.dec_layers]}
+    att, att_mask, ids, _ = inp["decoder_args"]
+    out["decode"] = decode_logits(dec, att, att_mask, ids)
     mha = MultiHeadAttention(3, 12)
     mha.load_state_dict(inp["mha_sd"])
     shard_params_tp(mha, mesh)

@@ -1137,3 +1137,96 @@ class TestDataParallel:
             dist.destroy_process_group()
         assert one[1][1] > 0 and one[1][0] == 3 * one[1][1]
         assert got == one
+
+
+class TestStackedCLN:
+    """The decode steps' stacked CLN pass (models/rm_decoder.py): every
+    conditional norm's memory MLPs as one float32 ``addmm`` and one
+    ``baddbmm`` over a pack of their weights, refreshed in place."""
+
+    def test_flagship_bf16_beam_loop_captured_equals_eager(self, cuda_device):
+        """Every step takes the stacked pass, captured (the eager step of each
+        cache phase, then the captures; a replay repeats its capture) and
+        eager, bit-equal."""
+        dec, step, state0, kw = _loop_case(cuda_device, torch.bfloat16, "fused", False)
+        assert dec._cln_pack is not None
+        n0 = dec.stacked_cln_steps
+        cap, got = _run_loop(step, state0, kw, graphs=True)
+        n1 = dec.stacked_cln_steps
+        eag, want = _run_loop(step, state0, kw, graphs=False)
+        steps = _LOOP_SCHEDULE[-1]
+        assert cap.graphs and not eag.graphs and cap.steps_run == eag.steps_run == steps
+        assert n1 - n0 == len(_LOOP_SCHEDULE) + steps
+        assert dec.stacked_cln_steps - n1 == steps
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert got.seqs.unique().numel() > 3
+
+    def test_stacked_gemms_are_float32(self, cuda_device):
+        """The bf16 flagship's pack and its (scale, shift) are float32 and
+        hold the per-norm MLPs computed in float64 within 1e-5 (a TF32 or
+        bf16 product would miss by ~1e-3)."""
+        dec, _, _, _ = _loop_case(cuda_device, torch.bfloat16, "fused", False)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(3)
+        mem = torch.randn(_LOOP_BATCH * _LOOP_BEAM, 3 * 512, generator=g, device=cuda_device)
+        with torch.inference_mode():
+            got = dec.cln_scale_shift(mem)
+        assert all(t.dtype == torch.float32 for t in dec._cln_pack)
+        assert got.dtype == torch.float32 and got.shape == (18, mem.shape[0], 512)
+        m = mem.double()
+        for i, (m0, m1, v) in enumerate(dec._cln_sources()):
+            w = lambda dense: (dense.weight.double(), dense.bias.double())
+            (w0, b0), (w1, b1) = w(m0), w(m1)
+            want = v.double() + torch.relu(m @ w0.t() + b0) @ w1.t() + b1
+            torch.testing.assert_close(got[i].double(), want, rtol=1e-5, atol=1e-5)
+
+    def test_finetune_eval_decode_reads_the_refreshed_pack(self, cuda_device):
+        """The finetune loop's val / test decode (``serving=False``, captured)
+        after a train step: the next call refreshes the pack in place (same
+        addresses, so the captured graphs read it) and decodes what a fresh
+        model with the trained weights decodes eagerly."""
+        from evoke_tpu_torch.core.config import DecodeConfig
+        from evoke_tpu_torch.models.finetune import FinetuneModel
+        from evoke_tpu_torch.params import init_params_
+        from evoke_tpu_torch.train.optim import build_optimizer
+        from evoke_tpu_torch.train.steps import TrainState, make_generate_step, make_train_step
+
+        class Tok:
+            bos_id, eos_id, pad_id, unk_id = 48, 49, 0, 4
+
+            def get_vocab_size(self):
+                return 50
+
+        def build():
+            return FinetuneModel(vocab_size=50, **ZOO_CARD).to(cuda_device)
+
+        def dev_batch(seed):
+            return {k: torch.as_tensor(v).to(cuda_device) for k, v in _train_batch(seed).items()}
+
+        model = init_params_(build(), 0)
+        dec = model.text_decoder
+        gen = make_generate_step(model, Tok(), DecodeConfig(beam_size=3), 16,
+                                 with_indication=True, serving=False, device=cuda_device)
+        batch = dev_batch(2)
+        gen(batch)
+        assert gen.captured and all(loop.graphs for loop, _ in gen.loops.values())
+        ptrs = [t.data_ptr() for t in dec._cln_pack]
+        old = [t.clone() for t in dec._cln_pack]
+        n = dec.cln_pack_refreshes
+        opt = build_optimizer("RAdam", "finetune", model, **TRAIN_LR)
+        make_train_step(model, opt, 0, with_indication=True, dropout=False)(
+            TrainState(model, opt), dev_batch(1))
+        got = gen(batch)
+        torch.cuda.synchronize()
+        assert dec.cln_pack_refreshes == n + 1
+        assert [t.data_ptr() for t in dec._cln_pack] == ptrs
+        assert not torch.equal(dec._cln_pack[0], old[0])
+        fresh = build()
+        fresh.load_state_dict(model.state_dict())
+        want = make_generate_step(fresh, Tok(), DecodeConfig(beam_size=3), 16,
+                                  with_indication=True, serving=False, device=cuda_device,
+                                  graphs=False)(batch)
+        for a, b in zip(dec._cln_pack, fresh.text_decoder._cln_pack):
+            assert torch.equal(a, b)
+        assert torch.equal(got, want)

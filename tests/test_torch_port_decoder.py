@@ -152,3 +152,66 @@ def test_beam_search_paths_match_jax(monkeypatch, kw):
     np.testing.assert_allclose(np.asarray(want.scores), got.scores.numpy(), rtol=1e-5,
                                atol=1e-5)
     assert len(np.unique(got.seqs.numpy())) > 3
+
+
+def _full_decode(td, te, tmask, toks, grad=False):
+    """Every step's (logits, memory) of a full cached decode of ``toks``
+    [T, N] from a fresh state; ``grad``: under autograd, where the decode
+    steps keep the per-norm CLN MLPs."""
+    st = td.init_decode_state(te, toks.shape[1], toks.shape[0])
+    out = []
+    with torch.set_grad_enabled(grad):
+        for pos, tok in enumerate(toks):
+            tl, st = td.decode_step(torch.as_tensor(tok), pos, st, tmask, return_logits=True)
+            out.append((tl.detach(), st["memory"].detach()))
+    return out
+
+
+@pytest.mark.parametrize("case", ["per_norm", "optimizer_step", "load_state_dict",
+                                  "assign"])
+def test_stacked_cln_decode(case):
+    """The decode steps' stacked CLN pass (two float32 GEMMs for every
+    norm's memory MLPs): per_norm, the same full cached decode through the
+    per-norm MLPs (logits and memory at every step, 1e-5) and through JAX
+    (1e-4); then a CLN weight changed in place by an optimizer step, copied
+    in by ``load_state_dict``, or replaced by ``load_state_dict(assign=True)``:
+    the next decode refreshes the pack once and equals a freshly built
+    model's."""
+    from evoke_tpu_torch.train.optim import build_optimizer
+
+    jd, v, td, att, mask, rng = _pair(jnp.float32)
+    toks = rng.integers(0, VOCAB + 1, size=(7, B * BEAM)).astype(np.int32)
+    tmask = torch.as_tensor(mask)
+    with torch.no_grad():
+        te = td.encode(torch.as_tensor(att), tmask)
+    got = _full_decode(td, te, tmask, toks)
+    assert (td.stacked_cln_steps, td.cln_pack_refreshes) == (7, 1)
+    if case == "per_norm":
+        want = _full_decode(td, te, tmask, toks, grad=True)
+        assert (td.stacked_cln_steps, td.cln_pack_refreshes) == (7, 1)   # nothing changed
+        je = jd.apply(v, att, mask, method=jd.encode)
+        js = jd.apply(v, je, B * BEAM, 7, method=jd.init_decode_state)
+        for pos, ((gl, gm), (wl, wm)) in enumerate(zip(got, want)):
+            torch.testing.assert_close(gl, wl, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-5)
+            jl, js = jd.apply(v, toks[pos], pos, js, mask, return_logits=True,
+                              method=jd.decode_step)
+            np.testing.assert_allclose(np.asarray(jl), gl.numpy(), atol=1e-4, rtol=1e-4)
+        return
+    name = "dec_1.cln2.mlp_beta_1.weight"
+    if case == "optimizer_step":
+        opt = build_optimizer("AdamW", "pretrain", td, pt_lr=0.05, ft_lr=0.05,
+                              weight_decay=0.0)
+        opt.step({name: torch.ones_like(td.get_parameter(name))})
+    else:
+        sd = td.state_dict()
+        sd[name] = sd[name] + 0.05
+        td.load_state_dict(sd, assign=case == "assign")
+    after = _full_decode(td, te, tmask, toks)
+    assert (td.stacked_cln_steps, td.cln_pack_refreshes) == (14, 2)
+    fresh = TDec(vocab_size=VOCAB, dtype=torch.float32, **DIMS).eval()
+    fresh.load_state_dict(td.state_dict())
+    want = _full_decode(fresh, te, tmask, toks)
+    assert not torch.equal(after[-1][0], got[-1][0])
+    for (al, am), (wl, wm) in zip(after, want):
+        assert torch.equal(al, wl) and torch.equal(am, wm)

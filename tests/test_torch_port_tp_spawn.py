@@ -200,6 +200,8 @@ def refs(tmp_path_factory):
         lambda vv: jdec.apply(vv, att, att_mask, ids, tgt_mask))(sharded))
     dec = RMDecoder(**DECODER)
     load_flax_variables(dec, jax.tree_util.tree_map(np.asarray, dvars))
+    out["decode"] = tpcase.decode_logits(dec, *(torch.as_tensor(a) for a in (att, att_mask,
+                                                                              ids)))
     mha = init_params_(MultiHeadAttention(3, 12), 5)
     x = torch.tensor(rng.normal(size=(2, 4, 12)), dtype=torch.float32)
     with torch.no_grad():
@@ -236,6 +238,19 @@ def test_r2gen_decoder_at_mp2_equals_jax_tp_decoder(devices, refs):
     for r in ranks:
         assert r["decoder_heads"] == [1, 1]        # 2 heads split over mp=2
         np.testing.assert_allclose(r["decoder"], out["decoder"], rtol=2e-5, atol=2e-5)
+
+
+def test_split_cln_decode_keeps_the_per_norm_mlps(refs):
+    """mp=2 splits every CLN's first-layer MLPs (``mlp_*_0``): the decode
+    steps keep the per-norm path (no pack, no stacked step) and give the
+    one-device decode's logits, which took the stacked pass."""
+    out, _, ranks = refs
+    want, stacked, packed = out["decode"]
+    assert stacked == DECODER["max_seq_len"] and packed
+    for r in ranks:
+        got, stacked, packed = r["decode"]
+        assert stacked == 0 and not packed
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_heads_that_mp_does_not_divide_keep_all_heads(refs):
