@@ -45,7 +45,8 @@ class ModelConfig:
     fusion_intermediate_size: int = 2048
 
     # text decoder: r2gen | cmn | causal | bertgen; the CLI, like the JAX CLI,
-    # builds r2gen whatever this says (FinetuneModel takes decoder_kind)
+    # builds r2gen whatever this says (FinetuneModel takes decoder_kind, and
+    # the port's mla_moe kind with its keys, MLA_MOE_KEYS, in one dict)
     text_decoder: str = "r2gen"
     d_model: int = 512
     d_ff: int = 512
@@ -75,6 +76,49 @@ class ModelConfig:
     is_add_indication: bool = True
 
     dtype: str = "float32"                       # float32 | bfloat16
+
+
+# The ``mla_moe`` decoder's language-model keys (models/mla_moe_decoder.py),
+# named as a DeepSeek-V2 / V3 style config.json names them, with the values
+# Kimi-VL-A3B-Instruct's language model publishes
+# (huggingface.co/moonshotai/Kimi-VL-A3B-Instruct, config.json). The port has
+# no counterpart in the JAX package, so the keys live outside ModelConfig.
+MLA_MOE_KEYS: Dict[str, Any] = {
+    "vocab_size": 163840, "max_position_embeddings": 131072, "hidden_size": 2048,
+    "intermediate_size": 11264, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "n_shared_experts": 2, "n_routed_experts": 64, "ep_size": 1,
+    "routed_scaling_factor": 2.446, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+    "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6,
+    "moe_layer_freq": 1, "first_k_dense_replace": 1, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "seq_aux": True, "num_key_value_heads": 16,
+    "hidden_act": "silu", "rms_norm_eps": 1e-05, "rope_theta": 800000, "rope_scaling": None,
+    "attention_bias": False, "tie_word_embeddings": False,
+}
+# the published variants the decoder does not implement: key -> the value it needs
+_MLA_MOE_FIXED = {"q_lora_rank": None, "rope_scaling": None, "topk_method": "noaux_tc",
+                  "n_group": 1, "topk_group": 1, "scoring_func": "sigmoid", "ep_size": 1,
+                  "hidden_act": "silu", "moe_layer_freq": 1, "attention_bias": False,
+                  "tie_word_embeddings": False}
+
+
+def mla_moe_keys(lm: Dict[str, Any]) -> Dict[str, Any]:
+    """``lm`` over MLA_MOE_KEYS' defaults, checked: an unknown key raises
+    ``ValueError``, a variant the decoder does not implement (query
+    compression, rope scaling, grouped or softmax routing, expert
+    parallelism, tied embeddings) ``NotImplementedError``."""
+    unknown = sorted(set(lm) - set(MLA_MOE_KEYS))
+    if unknown:
+        raise ValueError(f"mla_moe: unknown keys {unknown}")
+    out = {**MLA_MOE_KEYS, **lm}
+    for key, want in _MLA_MOE_FIXED.items():
+        if out[key] != want:
+            raise NotImplementedError(f"mla_moe: {key}={out[key]!r}; the decoder implements "
+                                      f"{want!r} only")
+    if out["num_key_value_heads"] != out["num_attention_heads"]:
+        raise NotImplementedError("mla_moe: num_key_value_heads must equal "
+                                  "num_attention_heads (MLA shares one latent)")
+    return out
 
 
 @dataclass

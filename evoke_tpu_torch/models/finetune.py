@@ -8,7 +8,10 @@ log-probs); ``encode_for_decode`` / ``decode_step`` are the decode surface.
 ``visual_encoder``: ``resnet101`` or ``vit_b32`` (``models/vit.py``);
 ``decoder_kind``: ``r2gen`` (``models/rm_decoder.py``), ``cmn``
 (``models/cmn.py``), ``causal`` or ``bertgen`` (``models/causal_decoder.py``;
-both with d_ff = max(d_ff, 4 * d_model)), as the JAX module builds them.
+both with d_ff = max(d_ff, 4 * d_model)), as the JAX module builds them; and
+the port's own ``mla_moe`` (``models/mla_moe_decoder.py``), a DeepSeek-V2 / V3
+style language model whose keys come in one dict, ``mla_moe``
+(``core/config.MLA_MOE_KEYS``); its hidden size becomes ``d_model``.
 
 Dropout rates are the JAX module's: ``dropout`` in the decoder's sublayers,
 ``drop_prob_lm`` on its embedded image tokens, 0.1 in its relational memory,
@@ -31,7 +34,7 @@ from evoke_tpu_torch.models.resnet import VisualExtractor
 from evoke_tpu_torch.models.rm_decoder import RMDecoder
 from evoke_tpu_torch.models.text_encoder import TextEncoder
 
-DECODER_KINDS = ("r2gen", "cmn", "causal", "bertgen")
+DECODER_KINDS = ("r2gen", "cmn", "causal", "bertgen", "mla_moe")
 VISUAL_ENCODERS = ("resnet101", "vit_b32")
 
 
@@ -49,7 +52,8 @@ class FinetuneModel(nn.Module):
                  is_multiview_learning: bool = True, decoder_kind: str = "r2gen",
                  visual_encoder: str = "resnet101", cmm_size: int = 2048,
                  cmm_dim: int = 512, cmn_topk: int = 32, encoder_dropout: float = 0.1,
-                 remat_visual: bool = False, dtype=torch.float32):
+                 remat_visual: bool = False, mla_moe: Optional[Dict[str, Any]] = None,
+                 dtype=torch.float32):
         super().__init__()
         if decoder_kind not in DECODER_KINDS:
             raise ValueError(f"decoder_kind={decoder_kind!r}: one of {DECODER_KINDS}")
@@ -88,7 +92,13 @@ class FinetuneModel(nn.Module):
         dec = dict(vocab_size=vocab_size, d_model=d_model, d_vf=output_dim,
                    num_layers=num_layers, num_heads=num_heads, dropout_rate=dropout,
                    drop_prob_lm=drop_prob_lm, max_seq_len=max_seq_len, dtype=dtype)
-        if decoder_kind in ("causal", "bertgen"):
+        if decoder_kind == "mla_moe":
+            from evoke_tpu_torch.models.mla_moe_decoder import MLAMoEDecoder
+
+            self.text_decoder = MLAMoEDecoder(vocab_size, output_dim, max_seq_len, dtype,
+                                              mla_moe)
+            self.d_model = self.text_decoder.d_model
+        elif decoder_kind in ("causal", "bertgen"):
             from evoke_tpu_torch.models.causal_decoder import (BertGenerationDecoder,
                                                                CausalDecoder)
 
@@ -172,7 +182,8 @@ class FinetuneModel(nn.Module):
 
     def init_decode_state(self, enc, batch: int, max_len: Optional[int] = None,
                           kv_dtype: str = ""):
-        """``kv_dtype="int8"``: quantized caches (the R2Gen decoder's only)."""
+        """``kv_dtype="int8"``: quantized caches (the R2Gen decoder's only;
+        the others raise)."""
         if kv_dtype:
             return self.text_decoder.init_decode_state(enc, batch, max_len, kv_dtype)
         return self.text_decoder.init_decode_state(enc, batch, max_len)

@@ -202,13 +202,14 @@ def use_fused_logit_topk(model, serving: bool, *, logits_hook=None,
                          decoding_constraint: bool = False, mesh=None) -> bool:
     """Dispatch policy of the serving beam step's vocab tail (JAX
     ``ops/fused_logit_topk.py:268-297``): the fused tail (K2 on the card)
-    on the serving path of the r2gen decoder, unless something needs the
-    full [N, V] logits (``logits_hook``, ``decoding_constraint``); eval paths
+    on the serving path of the r2gen decoder and of the port's mla_moe
+    decoder (whose head has no bias: K2 reads a zero one), unless something
+    needs the full [N, V] logits (``logits_hook``, ``decoding_constraint``); eval paths
     stay unfused. ``mesh``: a pure-dp mesh keeps it (each rank calls K2 on
     its rows); mp > 1 would split the [D, V] weight and declines it."""
     from evoke_tpu_torch.ops.sharding import mesh_allows_kernels
 
     if logits_hook is not None or decoding_constraint:
         return False
-    return (serving and getattr(model, "decoder_kind", "r2gen") == "r2gen"
+    return (serving and getattr(model, "decoder_kind", "r2gen") in ("r2gen", "mla_moe")
             and mesh_allows_kernels(mesh))

@@ -165,6 +165,10 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
     shapes). A mesh with mp == 1 (or None) leaves the model as it is."""
     if mesh is None or mesh.mp == 1:
         return model
+    if getattr(model, "decoder_kind", None) == "mla_moe":
+        raise NotImplementedError(f"mp={mesh.mp} with decoder_kind='mla_moe': the MLA + MoE "
+                                  "decoder has no tensor-parallel split; serve it on one "
+                                  "device per replica (dp) instead")
     if getattr(model, "tp_mesh", None) is not None:
         raise ValueError("shard_params_tp: the model is already sharded")
     modules = dict(model.named_modules())

@@ -97,7 +97,8 @@ def init_params_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.ndim >= 2:
-            fan_in = p[0].numel()
+            # stacked expert matrices [E, out, in] take one expert's fan-in
+            fan_in = p.shape[-1] if p.ndim == 3 else p[0].numel()
             p.copy_(torch.randn(p.shape, generator=g, device=dev) / fan_in ** 0.5)
         elif leaf in ("weight", "gamma"):
             p.fill_(1.0)

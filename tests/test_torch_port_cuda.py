@@ -1230,3 +1230,66 @@ class TestStackedCLN:
         for a, b in zip(dec._cln_pack, fresh.text_decoder._cln_pack):
             assert torch.equal(a, b)
         assert torch.equal(got, want)
+
+
+_MLA_TOY = dict(vocab_size=97, max_position_embeddings=256, hidden_size=64,
+                intermediate_size=128, moe_intermediate_size=32, num_hidden_layers=3,
+                num_attention_heads=4, num_key_value_heads=4, n_shared_experts=1,
+                n_routed_experts=8, kv_lora_rank=32, qk_rope_head_dim=16, v_head_dim=16,
+                qk_nope_head_dim=16, num_experts_per_tok=2, first_k_dense_replace=1)
+
+
+class TestMLAMoE:
+    """The mla_moe decoder on the card: its vocabulary tail through K2 at the
+    language model's shape, and its decode step captured in CUDA graphs."""
+
+    def test_fused_topk_at_the_language_model_tail(self, cuda_device):
+        """Kimi-VL-A3B's head: 768 beam rows (256 studies x beam 3, four row
+        passes), D 2048, V 163,840, a zero bias; UNK suppressed."""
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(20)
+        h = torch.randn(768, 2048, generator=g, device=cuda_device).to(torch.bfloat16)
+        w = (torch.randn(163840, 2048, generator=g, device=cuda_device) / math.sqrt(2048)
+             ).to(torch.bfloat16)
+        b = torch.zeros(163840, dtype=torch.bfloat16, device=cuda_device)
+        got = fused_logit_topk(h, w, b, 3, (4,))
+        _assert_topk_close(got, fused_logit_topk_plain(h, w, b, 3, (4,)), torch.bfloat16)
+
+    @pytest.mark.parametrize("ancestor_kv", [True, False], ids=["ancestor", "reorder"])
+    def test_captured_decode_step_equals_eager(self, cuda_device, ancestor_kv):
+        """A toy bf16 decoder (hidden 64, 1 dense + 2 MoE layers of 8 experts)
+        through ``BeamLoop`` with the fused tail, 4 cache phases: captured and
+        eager give bit-equal results, and the expert ledger counts every
+        replayed step."""
+        from evoke_tpu_torch.decode.beam import BeamLoop
+        from evoke_tpu_torch.models.mla_moe_decoder import MLAMoEDecoder
+        from evoke_tpu_torch.params import init_params_
+
+        b, beam, schedule = 4, 3, (4, 8, 12, 16)
+        with torch.device(cuda_device):
+            dec = init_params_(MLAMoEDecoder(96, 64, 16, torch.bfloat16, _MLA_TOY), 0).eval()
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(1)
+        att = torch.randn(b, 5, 64, generator=g, device=cuda_device)
+        with torch.inference_mode():
+            state0 = dec.init_decode_state(dec.encode(att), b * beam, schedule[0])
+
+        def step(tok, t, st):
+            return dec.decode_step(tok, t, st, return_topk=beam, topk_suppress=(4,))
+
+        results = []
+        for graphs in (True, False):
+            loop = BeamLoop(step, state0, b, bos_id=94, eos_id=95, pad_id=0, vocab_size=97,
+                            beam_size=beam, max_len=schedule[-1], raw_logits=True,
+                            fused_topk=True, early_stop=False, cache_schedule=schedule,
+                            ancestor_kv=ancestor_kv, graphs=graphs)
+            dec.reset_expert_ledger()
+            loop.load(state0)
+            results.append(loop.run())
+            torch.cuda.synchronize()
+            led = dec.read_expert_ledger()
+            assert led["calls"].tolist() == [0, schedule[-1]]
+            assert led["rows"][1].sum() == schedule[-1] * b * beam * 2 * 2
+        for x, y in zip(*results):
+            assert torch.equal(x, y)
+        assert results[0].seqs.unique().numel() > 3
